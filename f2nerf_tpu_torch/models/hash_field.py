@@ -1,0 +1,111 @@
+"""Anchored hash-grid scene field (port of
+``f2nerf_tpu/models/hash_field.py``, paged mode, forward).
+
+Contraction -> paged hash encode -> Linear(L*C -> 16) head. Parameters
+are a plain dict with the JAX package's layout
+(``{"feat_pool": [P_total, C, 4, 4, 4], "mlp": {"w": [L*C, 16], "b"}}``,
+``w`` applied as ``x @ w``, so converted weights are not transposed).
+
+A params dict may also carry ``"haloed"``, the haloed table already in
+its compute dtype: callers whose params never change (the localizer)
+build it once instead of on every query.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from f2nerf_tpu_torch.core.config import ModelConfig
+from f2nerf_tpu_torch.ops import hash_paged
+from f2nerf_tpu_torch.ops.contraction import contract
+
+Params = dict[str, Any]
+
+
+@functools.lru_cache(maxsize=16)
+def paged_meta(cfg: ModelConfig) -> hash_paged.PagedMeta:
+    """Static paged-table layout, derived deterministically from config."""
+    scales = hash_paged.level_scales(cfg.n_levels, cfg.res_base_pow2,
+                                     cfg.res_fine_pow2)
+    return hash_paged.make_paged_meta(
+        cfg.n_levels, cfg.table_size, cfg.n_channels, scales,
+        np_seed=cfg.init_seed)
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.bf16_features else torch.float32
+
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         device: torch.device) -> Params:
+    """Field parameters with the JAX package's distributions (not its
+    bits): feat_pool ~ (U*0.2-1)*1e-4, mlp ~ U(-1/sqrt(in), 1/sqrt(in)).
+    ``generator`` lives on ``device``."""
+    if cfg.hash_mode != "paged":
+        raise NotImplementedError(
+            f"hash_mode={cfg.hash_mode!r} is not ported; only 'paged' is")
+    feat = hash_paged.init_pages(generator, paged_meta(cfg), device)
+    in_dim = cfg.n_levels * cfg.n_channels
+    bound = 1.0 / np.sqrt(in_dim)
+
+    def uniform(*shape):
+        u = torch.rand(shape, generator=generator, device=device)
+        return u * (2.0 * bound) - bound
+
+    return {"feat_pool": feat,
+            "mlp": {"w": uniform(in_dim, cfg.hash_feat_dim),
+                    "b": uniform(cfg.hash_feat_dim)}}
+
+
+def haloed_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The haloed table in the compute dtype (see the module docstring)."""
+    return hash_paged.halo_pages(params["feat_pool"], paged_meta(cfg)).to(
+        compute_dtype(cfg))
+
+
+def _apply_level_weights(feat: torch.Tensor, level_weights,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Scale each hash level's channel block ([..., L*C] level-major)
+    by level_weights [L]."""
+    if level_weights is None:
+        return feat
+    shape = feat.shape
+    f = feat.reshape(*shape[:-1], cfg.n_levels, cfg.n_channels)
+    f = f * level_weights.to(feat.dtype)[..., :, None]
+    return f.reshape(shape)
+
+
+def query(params: Params, points: torch.Tensor, cfg: ModelConfig,
+          pre_contracted: bool = False,
+          level_weights=None) -> torch.Tensor:
+    """[N, 3] world-space points -> [N, hash_feat_dim] f32 features
+    (channel 0 is raw density). Reference src/hash_3d_anchored.cpp:70-88."""
+    if cfg.hash_mode != "paged" or cfg.warp_mode != "contract":
+        raise NotImplementedError(
+            "only hash_mode='paged' with warp_mode='contract' is ported")
+    x = points if pre_contracted else contract(points,
+                                               cfg.contraction_radius)
+    feat = hash_paged.paged_encode(
+        x, params["feat_pool"], paged_meta(cfg),
+        compute_dtype=compute_dtype(cfg), chunk=cfg.encode_chunk,
+        haloed=params.get("haloed"))
+    feat = _apply_level_weights(feat, level_weights, cfg)
+    return feat @ params["mlp"]["w"] + params["mlp"]["b"]
+
+
+def query_rays(params: Params, points: torch.Tensor, cfg: ModelConfig,
+               level_weights=None) -> torch.Tensor:
+    """Ray-structured query: [R, S, 3] -> [R, S, hash_feat_dim].
+
+    The JAX package deduplicates coarse-level page fetches along each ray
+    (``paged_encode_rays``); that dedup is bitwise equal to the flat
+    encode by construction and exists to save TPU row fetches, so the
+    port encodes flat.
+    """
+    r, s = points.shape[0], points.shape[1]
+    return query(params, points.reshape(r * s, 3), cfg,
+                 level_weights=level_weights).reshape(r, s, -1)

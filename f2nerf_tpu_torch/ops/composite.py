@@ -1,0 +1,57 @@
+"""Dense masked volume-rendering ops (port of
+``f2nerf_tpu/ops/composite.py``: ``exclusive_cumsum``,
+``density_activation``, ``composite``).
+
+Samples live in a dense ``[n_rays, n_samples]`` layout; the reference's
+early-stop keep mask (trans > eps) is a prefix of each ray, so masking
+densities reproduces its compacted two-pass computation exactly
+(reference ``src/renderer.cpp:58-122``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from f2nerf_tpu_torch.ops.trunc_exp import trunc_exp
+
+
+def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Per-row exclusive prefix sum (FlexOps::AccumulateSum include=false)."""
+    return torch.cumsum(x, dim=dim) - x
+
+
+def density_activation(raw: torch.Tensor, shift: float = 3.0) -> torch.Tensor:
+    """sigma = TruncExp(raw - shift) — reference src/renderer.cpp:53-56."""
+    return trunc_exp(raw - shift)
+
+
+def composite(sec_density: torch.Tensor, colors: torch.Tensor,
+              t: torch.Tensor, bg_color: torch.Tensor,
+              trans_eps: float = 1e-4
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Alpha-composite a dense batch of rays.
+
+    Args:
+      sec_density: [R, S] sigma_i * dt_i.
+      colors: [R, S, 3] per-sample RGB.
+      t: [R, S] ray parameter of each sample.
+      bg_color: [R, 3] background color.
+      trans_eps: keep samples with transmittance > eps.
+
+    Returns:
+      (rgb [R, 3], depth [R], weights [R, S], mask [R, S] bool).
+    """
+    acc_all = exclusive_cumsum(sec_density)
+    mask = torch.exp(-acc_all) > trans_eps                   # prefix mask
+    sd = sec_density * mask
+    acc = exclusive_cumsum(sd)
+    trans = torch.exp(-acc)
+    alpha = 1.0 - torch.exp(-sd)
+    weights = trans * alpha                                  # [R, S]
+    last_trans = torch.exp(-torch.sum(sd, dim=-1))           # [R]
+    rgb = (torch.sum(weights[..., None] * colors, dim=-2)
+           + last_trans[..., None] * bg_color)
+    depth = (torch.sum(weights * (t + 1e-2), dim=-1)
+             / (1.0 - last_trans + 1e-4))
+    return rgb, depth, weights, mask

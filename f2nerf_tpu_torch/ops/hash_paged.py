@@ -1,0 +1,225 @@
+"""Paged multi-level hash-grid encoding (port of
+``f2nerf_tpu/ops/hash_paged.py``, forward only).
+
+The layout is the JAX package's, unchanged, so converted parameters and
+page indices agree exactly:
+
+* the table is stored as **pages** of 4x4x4 cells with C channels;
+* the page hash is **additive**, page(Xb, Yb, Zb) = (A*Xb + B*Yb + Zb)
+  mod N per level, so the +x/+y/+z block neighbours of page p are pages
+  p+A, p+B, p+1 and a **haloed** table (each page extended to 5x5x5)
+  is three roll+concat passes; a point's 8 trilinear corners always lie
+  inside one haloed page;
+* coarse levels whose block grid fits the budget are stored dense;
+* haloed rows are channel-major and lane-padded: [C, 128] per page
+  (125 cells + 3 pad).
+
+The forward encode is one call of the ``trilinear_fwd`` kernel
+(kernels/trilinear.py), which fuses the per-level row gather with the
+trilinear contraction. The backward (page-gradient ``segment_sum`` and
+the point-gradient path) belongs to the training and pose-gradient
+slices and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from f2nerf_tpu_torch.kernels.trilinear import ROW_PAD, trilinear_fwd
+
+BLOCK = 4            # cells per page axis
+HALO = BLOCK + 1     # haloed page axis
+PAGE_CELLS = HALO * HALO * HALO   # 125 haloed cells, lane-padded to ROW_PAD
+_U32 = 0xFFFFFFFF
+
+
+def level_scales(n_levels: int, res_base_pow2: float = 3.0,
+                 res_fine_pow2: float = 10.0) -> np.ndarray:
+    """Per-level scale factors: exp2(base + (fine-base) * l / (L-1))
+    (``f2nerf_tpu/ops/hash_encode.py:40-46``)."""
+    lvl = np.arange(n_levels, dtype=np.float32)
+    denom = max(n_levels - 1, 1)
+    return np.exp2(res_base_pow2
+                   + (res_fine_pow2 - res_base_pow2) * lvl / denom)
+
+
+class PagedMeta(NamedTuple):
+    """Static per-level constants for the paged encode."""
+    n_levels: int
+    n_channels: int
+    n_pages: tuple[int, ...]       # pages per level
+    page_offset: tuple[int, ...]   # cumulative offsets into the page table
+    a: np.ndarray                  # [L] uint32 additive x constant
+    b: np.ndarray                  # [L] uint32 additive y constant
+    dense: tuple[bool, ...]        # level stored dense (no collisions)
+    scales: np.ndarray             # [L] float32 resolution multipliers
+    biases: np.ndarray             # [L, 3] float32 anchors
+
+    @property
+    def total_pages(self) -> int:
+        return self.page_offset[-1] + self.n_pages[-1]
+
+
+def make_paged_meta(n_levels: int, table_size: int, n_channels: int,
+                    scales: np.ndarray, np_seed: int = 2022) -> PagedMeta:
+    """Per-level page layout; the same ``default_rng(np_seed + 7)`` draws
+    as the JAX package, so the constants are identical.
+
+    Pages per level = min(res_blocks^3, table_size / BLOCK^3): coarse
+    levels are dense (A = res^2, B = res), finer ones hash with random
+    odd A, B.
+    """
+    rng = np.random.default_rng(np_seed + 7)
+    max_pages = max(table_size // (BLOCK ** 3), 1)
+    n_pages, offsets, a_c, b_c, dense, biases = [], [], [], [], [], []
+    off = 0
+    for lvl in range(n_levels):
+        res_blocks = int(np.ceil(4.0 * float(scales[lvl]) / BLOCK)) + 1
+        if res_blocks ** 3 <= max_pages:
+            n_p = res_blocks ** 3
+            a_c.append(res_blocks * res_blocks)
+            b_c.append(res_blocks)
+            dense.append(True)
+            biases.append(np.full(3, 2.0 * float(scales[lvl]),
+                                  dtype=np.float32))
+        else:
+            n_p = max_pages
+            a_c.append(int(rng.integers(1 << 20, 1 << 31)) | 1)
+            b_c.append(int(rng.integers(1 << 20, 1 << 31)) | 1)
+            dense.append(False)
+            biases.append(
+                rng.uniform(100.0, 1100.0, 3).astype(np.float32))
+        n_pages.append(n_p)
+        offsets.append(off)
+        off += n_p
+    return PagedMeta(
+        n_levels=n_levels, n_channels=n_channels,
+        n_pages=tuple(n_pages), page_offset=tuple(offsets),
+        a=np.array(a_c, dtype=np.uint32), b=np.array(b_c, dtype=np.uint32),
+        dense=tuple(dense),
+        scales=np.asarray(scales, dtype=np.float32),
+        biases=np.stack(biases).astype(np.float32))
+
+
+def init_pages(generator: torch.Generator, meta: PagedMeta,
+               device: torch.device) -> torch.Tensor:
+    """[P_total, C, 4, 4, 4] feature pages ~ (U*0.2-1)*1e-4 (reference
+    src/hash_3d_anchored.cpp:24). ``generator`` lives on ``device``."""
+    shape = (meta.total_pages, meta.n_channels, BLOCK, BLOCK, BLOCK)
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u * 0.2 - 1.0) * 1e-4
+
+
+def halo_pages(pages: torch.Tensor, meta: PagedMeta) -> torch.Tensor:
+    """Materialize haloed page rows [P_total, C * 128].
+
+    Three roll+concat passes per level: the +x/+y/+z block neighbour of
+    page p is page p+A / p+B / p+1.
+    """
+    out = []
+    for lvl in range(meta.n_levels):
+        off = meta.page_offset[lvl]
+        n_p = meta.n_pages[lvl]
+        t = pages[off:off + n_p]                     # [P, C, 4, 4, 4]
+        a = int(meta.a[lvl]) % n_p
+        b = int(meta.b[lvl]) % n_p
+        hz = torch.cat([t, torch.roll(t, -1, dims=0)[..., :, :, :1]], dim=4)
+        hy = torch.cat([hz, torch.roll(hz, -b, dims=0)[..., :, :1, :]],
+                       dim=3)
+        hx = torch.cat([hy, torch.roll(hy, -a, dims=0)[..., :1, :, :]],
+                       dim=2)
+        out.append(hx)
+    h = torch.cat(out, dim=0)                        # [P_total, C, 5,5,5]
+    h = h.reshape(meta.total_pages, meta.n_channels, PAGE_CELLS)
+    h = torch.nn.functional.pad(h, (0, ROW_PAD - PAGE_CELLS))
+    return h.reshape(meta.total_pages, meta.n_channels * ROW_PAD)
+
+
+def page_indices(points: torch.Tensor, meta: PagedMeta
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per (level, point): global page index, in-block local cell
+    coords and trilinear fractions, level-major.
+
+    The JAX package hashes in ``uint32`` (``raw % n_pages`` wraps mod
+    2^32). PyTorch has no ``uint32`` remainder on every device, so the
+    hash runs in int64 with each product and the sum masked to 32 bits,
+    which gives the same residues.
+
+    Returns (page_idx [L, N] int32, local [L, N, 3] int32 in [0, BLOCK),
+    frac [L, N, 3] float32).
+    """
+    dev = points.device
+    scales = torch.as_tensor(meta.scales, device=dev)
+    biases = torch.as_tensor(meta.biases, device=dev)
+    pt = points[None, :, :] * scales[:, None, None] + biases[:, None, :]
+    f = torch.floor(pt)
+    frac = (pt - f).float()
+    ip = f.to(torch.int32)                               # cell coords
+    blk = (ip >> 2).to(torch.int64) & _U32               # as uint32
+    local = ip & (BLOCK - 1)
+
+    a = torch.as_tensor(meta.a.astype(np.int64), device=dev)[:, None]
+    b = torch.as_tensor(meta.b.astype(np.int64), device=dev)[:, None]
+    n_pages = torch.as_tensor(np.array(meta.n_pages, dtype=np.int64),
+                              device=dev)[:, None]
+    raw = (((blk[..., 0] * a) & _U32) + ((blk[..., 1] * b) & _U32)
+           + blk[..., 2]) & _U32
+    page = raw % n_pages
+    offs = torch.as_tensor(np.array(meta.page_offset, dtype=np.int64),
+                           device=dev)[:, None]
+    return (page + offs).to(torch.int32), local, frac
+
+
+def weight_row(local: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """Trilinear weights as a lane-padded f32 row.
+
+    local/frac: [..., 3] -> [..., 128] where slot s = x*25 + y*5 + z of
+    the haloed page gets w = wx[x]*wy[y]*wz[z], with
+    w_ax = (1-f)*[s==l] + f*[s==l+1] per axis.
+    """
+    s5 = torch.arange(HALO, dtype=torch.int32, device=local.device)
+
+    def axis_w(l_ax, f_ax):
+        loc = l_ax[..., None]
+        fr = f_ax[..., None]
+        zero = torch.zeros((), dtype=torch.float32, device=fr.device)
+        return (torch.where(s5 == loc, 1.0 - fr, zero)
+                + torch.where(s5 == loc + 1, fr, zero))   # [..., 5]
+
+    wx = axis_w(local[..., 0], frac[..., 0].float())
+    wy = axis_w(local[..., 1], frac[..., 1].float())
+    wz = axis_w(local[..., 2], frac[..., 2].float())
+    w = (wx[..., :, None, None] * wy[..., None, :, None]
+         * wz[..., None, None, :])                        # [..., 5, 5, 5]
+    w = w.reshape(*w.shape[:-3], PAGE_CELLS)
+    return torch.nn.functional.pad(w, (0, ROW_PAD - PAGE_CELLS))
+
+
+def paged_encode(points: torch.Tensor, pages: torch.Tensor,
+                 meta: PagedMeta, compute_dtype=torch.bfloat16,
+                 chunk: int = 65536,
+                 haloed: torch.Tensor | None = None) -> torch.Tensor:
+    """Encode points against the paged hash grid (forward).
+
+    Args:
+      points: [N, 3] contracted points.
+      pages: [P_total, C, 4, 4, 4] canonical feature pages (fp32 master).
+      meta: from :func:`make_paged_meta`.
+      compute_dtype: dtype of the haloed table.
+      chunk: points per chunk of the plain (CPU) version; the CUDA
+        kernel needs no chunking, and the output does not depend on it.
+      haloed: optional precomputed ``halo_pages(pages, meta)`` in
+        ``compute_dtype`` (the localizer builds it once, since its
+        params never change while serving).
+
+    Returns:
+      [N, L*C] float32 features, channel-minor per level.
+    """
+    if haloed is None:
+        haloed = halo_pages(pages, meta).to(compute_dtype)
+    page_idx, local, frac = page_indices(points, meta)
+    local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
+    return trilinear_fwd(haloed, page_idx, local_frac, chunk=chunk)

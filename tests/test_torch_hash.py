@@ -1,0 +1,212 @@
+"""Port parity: the paged hash encode (f2nerf_tpu_torch.ops.hash_paged
+and kernels.trilinear's plain version against f2nerf_tpu.ops.hash_paged).
+
+Tolerances:
+* page layout, page indices, local cell coords and the haloed table are
+  integer or pure data movement: exactly equal;
+* fp32 encode against the JAX jnp branch: atol 1e-5 (f32 sums of 8
+  nonzero products of O(1) features, summed in another order);
+* bf16 encode against the Pallas kernel itself, run in interpret mode:
+  atol 1e-5. (The JAX jnp branch rounds the trilinear weights to bf16,
+  so it differs from the kernel by ~3e-3; the port, like the kernel,
+  keeps the weights in f32.)
+"""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import f2nerf_tpu.kernels.trilinear as jtri
+from f2nerf_tpu.core.config import ModelConfig as JModelConfig
+from f2nerf_tpu.models import hash_field as jhf
+from f2nerf_tpu.ops import hash_paged as jhp
+from f2nerf_tpu_torch.core.config import ModelConfig as TModelConfig
+from f2nerf_tpu_torch.kernels import trilinear as ttri
+from f2nerf_tpu_torch.models import hash_field as thf
+from f2nerf_tpu_torch.ops import hash_paged as thp
+
+# small layouts: both hashed levels (tiny), a dense+hashed mix, and the
+# full default model
+CONFIGS = {
+    "tiny": dict(n_levels=2, n_channels=2, log2_table_size=10),
+    "mixed": dict(n_levels=4, n_channels=4, log2_table_size=12),
+    "default": {},
+}
+
+
+def _metas(name):
+    kw = CONFIGS[name]
+    return (jhf.paged_meta(JModelConfig(**kw)),
+            thf.paged_meta(TModelConfig(**kw)))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_make_paged_meta_exact(name):
+    jm, tm = _metas(name)
+    assert tm.n_pages == jm.n_pages
+    assert tm.page_offset == jm.page_offset
+    assert tm.dense == jm.dense
+    assert tm.n_levels == jm.n_levels and tm.n_channels == jm.n_channels
+    for f in ("a", "b", "scales", "biases"):
+        x, y = getattr(tm, f), getattr(jm, f)
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    if name == "default":
+        assert tm.total_pages == 54794
+        assert not all(tm.dense) and any(tm.dense)
+
+
+def _away_from_edges(pts, meta, margin=1e-4):
+    """Keep points whose cell coordinate is at least ``margin`` from a
+    cell boundary on every level and axis (floor cannot flip there)."""
+    pt = (pts[None].astype(np.float64) * meta.scales[:, None, None]
+          + meta.biases[:, None, :])
+    frac = pt - np.floor(pt)
+    ok = np.all((frac > margin) & (frac < 1 - margin), axis=(0, 2))
+    return pts[ok]
+
+
+@pytest.mark.parametrize("name,span", [("tiny", 2.0), ("default", 2.0),
+                                       ("default", 60.0)])
+def test_page_indices_exact(name, span):
+    """span 60 reaches block coordinates ~16k on the finest hashed
+    level, positive and negative, where the uint32 products wrap."""
+    jm, tm = _metas(name)
+    rng = np.random.default_rng(7)
+    pts = _away_from_edges(
+        rng.uniform(-span, span, (6000, 3)).astype(np.float32), jm)
+    assert len(pts) > 4000
+    pj, lj, fj = jhp._page_indices_lm(jnp.asarray(pts), jm)
+    pt_, lt, ft = thp.page_indices(torch.from_numpy(pts), tm)
+    assert pt_.dtype == torch.int32 and lt.dtype == torch.int32
+    np.testing.assert_array_equal(pt_.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    # frac = pt - floor(pt): a few ulp of the scaled coordinate
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=2e-4)
+    if span > 2.0:
+        blk = np.floor(pts[None] * jm.scales[:, None, None]
+                       + jm.biases[:, None, :]) // 4
+        assert blk.max() > 10000 and blk.min() < -10000
+
+
+def test_hash_matches_uint32_arithmetic():
+    """The int64-masked hash against plain numpy uint32 arithmetic."""
+    _, tm = _metas("default")
+    rng = np.random.default_rng(8)
+    blk = rng.integers(-(1 << 24), 1 << 24, (2000, 3))
+    lvl = tm.n_levels - 1
+    with np.errstate(over="ignore"):
+        raw = (blk[:, 0].astype(np.uint32) * tm.a[lvl]
+               + blk[:, 1].astype(np.uint32) * tm.b[lvl]
+               + blk[:, 2].astype(np.uint32))
+    expect = (raw % np.uint32(tm.n_pages[lvl])).astype(np.int64) \
+        + tm.page_offset[lvl]
+    # points whose cell is 4*blk (+0.5 to sit mid-cell) on that level
+    pts = ((blk * 4 + 0.5 - tm.biases[lvl]) / tm.scales[lvl])
+    pages, _, _ = thp.page_indices(torch.from_numpy(pts), tm)
+    np.testing.assert_array_equal(pages[lvl].numpy(), expect)
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_halo_pages_exact(name):
+    jm, tm = _metas(name)
+    rng = np.random.default_rng(9)
+    pages = rng.uniform(-1, 1, (jm.total_pages, jm.n_channels, 4, 4, 4)
+                        ).astype(np.float32)
+    hj = np.asarray(jhp.halo_pages(jnp.asarray(pages), jm))
+    ht = thp.halo_pages(torch.from_numpy(pages), tm).numpy()
+    np.testing.assert_array_equal(ht, hj)
+
+
+def _pages_points(meta, n=3000, seed=10):
+    rng = np.random.default_rng(seed)
+    pages = rng.uniform(-1, 1, (meta.total_pages, meta.n_channels, 4, 4, 4)
+                        ).astype(np.float32)
+    pts = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    return pages, pts
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_paged_encode_fp32(name):
+    jm, tm = _metas(name)
+    pages, pts = _pages_points(jm)
+    ref = np.asarray(jhp.paged_encode(jnp.asarray(pts), jnp.asarray(pages),
+                                      jm, compute_dtype=jnp.float32,
+                                      use_pallas=False))
+    # chunk smaller than N: the plain version's chunking must not matter
+    out = thp.paged_encode(torch.from_numpy(pts), torch.from_numpy(pages),
+                           tm, compute_dtype=torch.float32, chunk=1000)
+    assert out.shape == (len(pts), jm.n_levels * jm.n_channels)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Run the JAX package's Pallas kernels in interpret mode on the CPU
+    (nothing in the JAX package changes)."""
+    orig = jtri.pl.pallas_call
+    monkeypatch.setattr(jtri.pl, "pallas_call",
+                        functools.partial(orig, interpret=True))
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_paged_encode_bf16_vs_pallas(name, pallas_interpret):
+    jm, tm = _metas(name)
+    pages, pts = _pages_points(jm, seed=11)
+    ref = np.asarray(jhp.paged_encode(jnp.asarray(pts), jnp.asarray(pages),
+                                      jm, compute_dtype=jnp.bfloat16,
+                                      use_pallas=True))
+    out = thp.paged_encode(torch.from_numpy(pts), torch.from_numpy(pages),
+                           tm, compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    # and the kernel-free jnp branch really is further away (bf16 weights)
+    jnp_ref = np.asarray(jhp.paged_encode(
+        jnp.asarray(pts), jnp.asarray(pages), jm,
+        compute_dtype=jnp.bfloat16, use_pallas=False))
+    assert np.abs(out.numpy() - jnp_ref).max() > 1e-4
+
+
+def test_trilinear_fwd_ref_is_the_cpu_path():
+    """On CPU tensors the wrapper is the plain version and launches no
+    kernel; a ragged point count goes through unchanged."""
+    _, tm = _metas("mixed")
+    pages, pts = _pages_points(tm, n=1001, seed=12)
+    haloed = thp.halo_pages(torch.from_numpy(pages), tm)
+    pidx, local, frac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    before = ttri.trilinear_fwd.launches
+    a = ttri.trilinear_fwd(haloed, pidx, lf, chunk=256)
+    b = ttri.trilinear_fwd_ref(haloed, pidx, lf, chunk=4096)
+    assert ttri.trilinear_fwd.launches == before
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ttri.trilinear_fwd(haloed, pidx, lf[:, :-1])
+
+
+def test_weight_row_matches_jax():
+    rng = np.random.default_rng(13)
+    local = rng.integers(0, 4, (500, 3)).astype(np.int32)
+    frac = rng.random((500, 3)).astype(np.float32)
+    ref = np.asarray(jhp._weight_row(jnp.asarray(local), jnp.asarray(frac)))
+    out = thp.weight_row(torch.from_numpy(local), torch.from_numpy(frac))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-7)
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, atol=1e-6)
+
+
+def test_level_scales_match():
+    from f2nerf_tpu.ops.hash_encode import level_scales
+
+    for n in (2, 8, 16):
+        x, y = thp.level_scales(n), level_scales(n)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+def test_dataclass_fields_are_the_same():
+    assert ([f.name for f in dataclasses.fields(TModelConfig)]
+            == [f.name for f in dataclasses.fields(JModelConfig)])
