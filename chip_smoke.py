@@ -8,17 +8,27 @@ Phases (each passes or raises; the script exits 0 only if all pass):
 1. Device and build: print the card, its power limit, and build every
    CUDA kernel under f2nerf_tpu_torch/kernels/csrc (one nvcc per
    source, all started together).
-2. Kernels at full width: each kernel on the inputs of one mode-0
-   localize request at the default ``Config()`` model, held against its
-   plain PyTorch version and timed with CUDA events.
+2. Kernels at full width, each held against its plain PyTorch version
+   and timed with CUDA events: ``trilinear_fwd`` on the inputs of one
+   mode-0 localize request, ``trilinear_bwd`` on the 4.19 M (point,
+   level) pairs of one training step at ``bench.py``'s operating point
+   (with a seeded O(1) cotangent), including two launches that must be
+   bitwise equal.
 3. Serving: a ``Localizer`` at the full-width ``Config()`` model (seeded
    random weights, the seeded 25%-occupied grid of ``bench.py``) behind
    a ``LocalizerService``: ``init_pose``, three mode-0 ``localize``
-   requests of 64 particles, ``status``. The kernels' launch counts are
-   set to 0 just before and read just after; every kernel must have
-   launched.
-4. End-to-end check: the same renderer on 512 rays on the card and on
-   the CPU (plain versions), with O(1) features.
+   requests of 64 particles, ``status``.
+4. Training: ``make_optimizer`` + ``make_train_step`` at ``bench.py``'s
+   operating point (``Config()``, 8192 rays/step, 8 cameras of 256x256
+   at f = 200, the seeded grid), 24 steps from step 3072 (two occupancy
+   refreshes among them); step times, rays/s, peak memory and one
+   profiled step.
+   In phases 3 and 4 the kernels' launch counts are set to 0 just before
+   and read just after; every kernel of the path must have launched.
+5. End-to-end checks: the VALIDATE renderer on 512 rays, and two train
+   steps on 512 rays at full width, on the card and on the CPU (plain
+   versions); two runs of a step on the card give bitwise-equal
+   ``feat_pool`` grads.
 
 Then one JSON line per the kernels, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
@@ -28,6 +38,7 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,11 +48,16 @@ import numpy as np
 import torch
 
 from f2nerf_tpu_torch.apps.serve import LocalizerService
+from f2nerf_tpu_torch.core.cameras import rays_from_pose
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.kernels import build, trilinear
 from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.ops import hash_paged
+from f2nerf_tpu_torch.ops.contraction import contract
+from f2nerf_tpu_torch.train.optim import make_optimizer
+from f2nerf_tpu_torch.train.step import (StepNoise, draw_noise,
+                                         make_train_step)
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -50,6 +66,20 @@ F32_FLOPS = 67e12
 KERNEL_TOL = 1e-5          # kernel vs plain version, same inputs
 FRAME_H, FRAME_W, RESIZE = 850, 1920, 8   # scripts/bench_localize.py
 N_REQUESTS, PARTICLES = 3, 64
+# bench.py's training operating point (bench.py:203-265)
+TRAIN_RAYS, N_IMAGES, CAM_HW, CAM_F = 8192, 8, 256, 200.0
+STEP0, TRAIN_STEPS, STEADY_FROM = 3072, 24, 2
+CHECK_RAYS = 512
+ALL_KERNELS = ("trilinear_fwd", "trilinear_bwd")
+
+
+def zero_launches() -> None:
+    for name in ALL_KERNELS:
+        getattr(trilinear, name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: getattr(trilinear, name).launches for name in ALL_KERNELS}
 
 
 def log(msg: str) -> None:
@@ -154,18 +184,278 @@ def kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
             "source": "f2nerf_tpu_torch/kernels/csrc/trilinear_fwd.cu",
             "replaces": "f2nerf_tpu/kernels/trilinear.py:146 (contract_fwd)",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "ref_ms": plain_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None}
 
 
-def seeded_occ_vals(cfg: Config, dev: torch.device) -> torch.Tensor:
-    """bench.py's seeded ~25%-occupied grid, as sampler values."""
+def seeded_grid(cfg: Config, dev: torch.device) -> torch.Tensor:
+    """bench.py's seeded ~25%-occupied [2, G, G, G] grid."""
     res = cfg.model.occ_grid_res
     occ_rng = np.random.default_rng(1)
     seeded = (occ_rng.random((res, res, res)) < 0.25).astype(np.float32) \
         * (2.0 * occupancy.sigma_threshold(cfg.model))
-    grid = torch.as_tensor(np.stack([seeded, seeded]), device=dev)
-    return occupancy.occ_values(grid, cfg.model)
+    return torch.as_tensor(np.stack([seeded, seeded]), device=dev)
+
+
+def seeded_occ_vals(cfg: Config, dev: torch.device) -> torch.Tensor:
+    """The seeded grid as sampler values."""
+    return occupancy.occ_values(seeded_grid(cfg, dev), cfg.model)
+
+
+def train_cfg(rays: int) -> Config:
+    cfg = Config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, pts_batch_size=rays * 512))
+
+
+def cameras(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """bench.py's cameras: identity poses, 256x256 at f = 200."""
+    poses = torch.eye(3, 4, device=dev).repeat(N_IMAGES, 1, 1)
+    intr = torch.tensor([[CAM_F, 0, CAM_HW / 2], [0, CAM_F, CAM_HW / 2],
+                         [0, 0, 1.0]], device=dev).repeat(N_IMAGES, 1, 1)
+    return poses, intr
+
+
+def batch(rng: np.random.Generator, rays: int, dev: torch.device):
+    cam = rng.integers(0, N_IMAGES, rays).astype(np.int32)
+    ij = np.stack([rng.integers(0, CAM_HW, rays),
+                   rng.integers(0, CAM_HW, rays)], -1).astype(np.int32)
+    gt = rng.random((rays, 3)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (cam, ij, gt))
+
+
+def train_step_inputs(cfg: Config, seed: int, dev: torch.device):
+    """page_idx / local_frac of one training step's samples at the bench
+    point, and a seeded O(1) cotangent of the encode output."""
+    poses, intr = cameras(dev)
+    cam, ij, _ = batch(np.random.default_rng(seed), TRAIN_RAYS, dev)
+    noise = draw_noise(cfg, STEP0, TRAIN_RAYS, dev)
+    rays_o, rays_d = rays_from_pose(poses[cam.long()], intr[cam.long()],
+                                    ij.float())
+    smp = occupancy.sample_rays_occ(
+        rays_o, rays_d, seeded_occ_vals(cfg, dev), cfg.model,
+        rank_u=noise.rank, within_u=noise.within, explore=noise.explore)
+    pts = contract(smp.pts.reshape(-1, 3), cfg.model.contraction_radius)
+    meta = hash_field.paged_meta(cfg.model)
+    page_idx, local, frac = hash_paged.page_indices(pts, meta)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn((pts.shape[0], meta.n_levels * meta.n_channels),
+                      generator=g, device=dev)
+    return cot, page_idx, torch.cat([local.float(), frac], dim=-1), meta
+
+
+def trilinear_bwd_bound_ms(g, page_idx, local_frac, n_pages: int,
+                           out_bytes: int) -> float:
+    """Least time on an H100 SXM: g, local_frac and page_idx read once,
+    d_haloed written once (the sort permutation is this design's own
+    intermediate, not the function's, so its bytes are left out);
+    ~8*(2+2C) f32 flops per (point, level) is far below the compute
+    bound."""
+    m = page_idx.numel()
+    c = g.shape[1] // page_idx.shape[0]
+    io_bytes = (g.numel() * 4 + local_frac.numel() * 4 + m * 4
+                + n_pages * c * hash_paged.ROW_PAD * out_bytes)
+    flops = m * 8 * (2 + 2 * c)
+    return max(io_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+
+
+def bwd_kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
+    """trilinear_bwd at one bench-point step's 4.19 M pairs. Tolerance
+    1e-5 x the sum of each cell's term magnitudes in f32 (the same f32
+    terms summed in another order; the kernel's hat-form weights differ
+    from the plain one-hot form by an ulp), plus 2^-8 of the value in
+    bf16 (one rounding of the sum)."""
+    g, page_idx, lf, meta = train_step_inputs(cfg, seed, dev)
+    n_pages = meta.total_pages
+    ref = trilinear.trilinear_bwd_ref(g, page_idx, lf, n_pages)
+    mag = trilinear.trilinear_bwd_ref(g.abs(), page_idx, lf, n_pages)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        out = trilinear.trilinear_bwd(g, page_idx, lf, n_pages, dtype)
+        again = trilinear.trilinear_bwd(g, page_idx, lf, n_pages, dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise RuntimeError(f"trilinear_bwd {dtype}: two launches on "
+                               f"the same inputs differ")
+        err = (out.float() - ref).abs()
+        tol = KERNEL_TOL * mag + (2.0 ** -8 * ref.abs()
+                                  if dtype == torch.bfloat16 else 0.0)
+        ratio = float((err / (tol + 1e-30)).max())
+        errs[str(dtype)] = float(err.max())
+        log(f"trilinear_bwd {dtype} M={page_idx.numel()}: max |kernel - "
+            f"plain| = {errs[str(dtype)]:.3e}, max err/tol = {ratio:.3f}; "
+            f"two launches bitwise equal")
+        if not (np.isfinite(ratio) and ratio <= 1.0):
+            raise RuntimeError(f"trilinear_bwd {dtype} disagrees with its "
+                               f"plain version: err/tol {ratio}")
+    counts = torch.bincount(page_idx.reshape(-1).long(),
+                            minlength=n_pages)
+    log(f"  entries per touched page: max {int(counts.max())}, pages "
+        f"touched {int((counts > 0).sum())} of {n_pages}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: trilinear.trilinear_bwd(
+        g, page_idx, lf, n_pages, torch.bfloat16), flush=flush)
+    warm_ms = cuda_ms(lambda: trilinear.trilinear_bwd(
+        g, page_idx, lf, n_pages, torch.bfloat16))
+    keys = page_idx.reshape(-1)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), flush=flush)
+    plain_ms = cuda_ms(lambda: trilinear.trilinear_bwd_ref(
+        g, page_idx, lf, n_pages, torch.bfloat16), reps=3, flush=flush)
+    bound_ms = trilinear_bwd_bound_ms(g, page_idx, lf, n_pages, 2)
+    log(f"trilinear_bwd bf16: {ms:.4f} ms (L2 flushed; the stable sort "
+        f"alone {sort_ms:.4f} ms), {warm_ms:.4f} ms (back to back), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"name": "trilinear_bwd", "route": "cuda",
+            "source": "f2nerf_tpu_torch/kernels/csrc/trilinear_bwd.cu",
+            "replaces": "f2nerf_tpu/kernels/trilinear.py:172 "
+                        "(contract_bwd_rows)",
+            "launches": None, "max_abs_err": errs[str(torch.float32)],
+            "max_abs_err_bf16": errs[str(torch.bfloat16)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "sort_ms": sort_ms,
+            "warm_ms": warm_ms}
+
+
+def make_trainer(cfg: Config, seed: int, dev: torch.device,
+                 o1_features: bool = False, where: torch.device | None = None):
+    """Seeded params made on the card (so every copy has the same values),
+    moved to ``where``, with their optimizer and train step."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = renderer.init(g, cfg.model, N_IMAGES, dev)
+    if o1_features:
+        pool = params["field"]["feat_pool"]
+        params["field"]["feat_pool"] = torch.rand(
+            pool.shape, generator=g, device=dev) * 2 - 1
+    params = _to(params, where or dev)
+    opt = make_optimizer(params, cfg.train)
+    return params, opt, make_train_step(cfg, opt)
+
+
+def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
+    """bench.py's operating point through the port's training entry
+    points; step times on the host clock around synchronized steps."""
+    params, opt, step_fn = make_trainer(cfg, seed, dev)
+    poses, intr = cameras(dev)
+    grid = seeded_grid(cfg, dev)
+    rng = np.random.default_rng(seed)
+    batches = [batch(rng, TRAIN_RAYS, dev) for _ in range(TRAIN_STEPS)]
+    pool0 = params["field"]["feat_pool"].detach().clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for k in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m.loss))
+        if k == 1 and torch.equal(params["field"]["feat_pool"], pool0):
+            raise RuntimeError("feat_pool did not change by step 2")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"launches on the training path: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"{name} never launched on the training "
+                               f"path")
+    finite = all(bool(torch.isfinite(p).all()) for p in opt.named.values())
+    if not (finite and np.all(np.isfinite(losses))):
+        raise RuntimeError(f"training diverged: losses {losses}")
+    refresh = [k for k in range(TRAIN_STEPS)
+               if (STEP0 + k) % cfg.model.occ_update_every == 0]
+    steady = times[STEADY_FROM:]
+    mean_ms = float(np.mean(steady))
+    log(f"train steps (ms): {[round(t, 2) for t in times]}; refresh steps "
+        f"{[STEP0 + k for k in refresh]}")
+    log(f"train step at {TRAIN_RAYS} rays: mean {mean_ms:.2f} ms, median "
+        f"{float(np.median(steady)):.2f} ms over steps {STEP0 + STEADY_FROM}"
+        f"-{STEP0 + TRAIN_STEPS - 1} -> {TRAIN_RAYS / mean_ms * 1e3:.0f} "
+        f"rays/s; peak memory {peak_gb:.2f} GiB; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    prof = profile_call(lambda: step_fn(params, grid, poses, intr,
+                                        STEP0 + TRAIN_STEPS, *batches[0]),
+                        "train step")
+    return {"step_ms": times, "mean_ms": mean_ms,
+            "median_ms": float(np.median(steady)),
+            "refresh_step_ms": [times[k] for k in refresh],
+            "rays_per_s": TRAIN_RAYS / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+            "launches": launches, "losses": losses, "profile": prof}
+
+
+def step_check_phase(seed: int, dev: torch.device) -> dict:
+    """Two train steps at full width on 512 rays, on the card and on the
+    CPU (plain versions), with O(1) features and the same draws; then the
+    same two steps again on the card.
+
+    Tolerances: loss rtol 1e-4 and grads atol 1e-2 x each leaf's largest
+    |grad| (CUDA and the CPU round exp/log/sqrt differently, the sums
+    cancel to ~1e-2 of their terms, and the bf16 page gradient can round
+    a cell either way, 2^-8); params: every entry within 2.05 lr and at
+    most 0.1% of them beyond 0.05 lr (an Adam step moves an entry by
+    about lr whatever the size of its grad, so a near-zero grad whose
+    sign differs moves it 2 lr apart).
+    """
+    cfg = train_cfg(CHECK_RAYS)
+    rng = np.random.default_rng(seed + 3)
+    poses, intr = cameras(dev)
+    batches = [batch(rng, CHECK_RAYS, dev) for _ in range(2)]
+    steps = (STEP0 + 1, STEP0 + 2)         # no refresh: CPU time
+    noises = [draw_noise(cfg, s, CHECK_RAYS, dev) for s in steps]
+    grid = seeded_grid(cfg, dev)
+    runs = {}
+    for name, where in (("cuda", dev), ("cuda again", dev),
+                        ("cpu", torch.device("cpu"))):
+        params, opt, step_fn = make_trainer(cfg, seed + 2, dev,
+                                            o1_features=True, where=where)
+        out = {"loss": [], "grads": [], "params": []}
+        for s, b, nz in zip(steps, batches, noises):
+            _, m = step_fn(params, grid.to(where), poses.to(where),
+                           intr.to(where), s, *(x.to(where) for x in b),
+                           noise=StepNoise(*(None if x is None
+                                             else x.to(where) for x in nz)))
+            out["loss"].append(float(m.loss))
+            out["grads"].append({k: p.grad.detach().cpu().clone()
+                                 for k, p in opt.named.items()})
+            out["params"].append({k: p.detach().cpu().clone()
+                                  for k, p in opt.named.items()})
+        out["lr"] = max(g["lr"] for g in opt.adam.param_groups)
+        runs[name] = out
+    a, b, c = runs["cuda"], runs["cuda again"], runs["cpu"]
+    report = {"loss_cuda": a["loss"], "loss_cpu": c["loss"]}
+    if not np.allclose(a["loss"], c["loss"], rtol=1e-4, atol=0):
+        raise RuntimeError(f"loss on the card {a['loss']} vs CPU "
+                           f"{c['loss']}")
+    worst = {}
+    for k in range(2):
+        for name, gc in c["grads"][k].items():
+            scale = float(gc.abs().max())
+            err = float((a["grads"][k][name] - gc).abs().max())
+            worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-30))
+            if err > 1e-2 * scale:
+                raise RuntimeError(f"step {k} grad {name}: card vs CPU "
+                                   f"{err:.3e} (scale {scale:.3e})")
+    lr = c["lr"]
+    for name, pc in c["params"][-1].items():
+        d = (a["params"][-1][name] - pc).abs()
+        far = float((d > 0.05 * lr).float().mean())
+        if float(d.max()) > 2.05 * lr or far > 1e-3:
+            raise RuntimeError(f"param {name}: card vs CPU max "
+                               f"{float(d.max()):.3e}, share beyond 0.05 "
+                               f"lr {far:.2e} (lr {lr:.3e})")
+    unequal = sorted(name for name in a["grads"][0]
+                     if not all(torch.equal(a["grads"][k][name],
+                                            b["grads"][k][name])
+                                for k in range(2)))
+    log(f"train steps on card vs CPU, {CHECK_RAYS} rays: losses "
+        f"{a['loss']} vs {c['loss']}; worst grad err / leaf max "
+        f"{ {k: f'{v:.1e}' for k, v in worst.items()} }")
+    log(f"two runs on the card: grads not bitwise equal for {unequal}")
+    if "field/feat_pool" in unequal:
+        raise RuntimeError("feat_pool grads differ between two runs on the "
+                           "card")
+    report.update(worst_grad_rel=worst, nondeterministic_leaves=unequal)
+    return report
 
 
 def make_localizer(cfg: Config, seed: int, dev: torch.device) -> Localizer:
@@ -194,7 +484,7 @@ def serving_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     log(f"localizer {loc.infer_height}x{loc.infer_width}, "
         f"{hash_field.paged_meta(cfg.model).total_pages} pages")
 
-    trilinear.trilinear_fwd.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     if not svc.handle({"cmd": "init_pose",
                        "pose": loc.camera2world(pose).tolist()})["ok"]:
@@ -218,31 +508,35 @@ def serving_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     if not (st["ok"] and st["frames"] == N_REQUESTS):
         raise RuntimeError(f"status: {st}")
     torch.cuda.synchronize()
-    launches = {"trilinear_fwd": trilinear.trilinear_fwd.launches}
+    launches = read_launches()
     log(f"launches on the serving path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise RuntimeError(f"{name} never launched on the serving path")
+    if launches["trilinear_fwd"] <= 0:
+        raise RuntimeError("trilinear_fwd never launched on the serving "
+                           "path")
     return {"request_ms": times, "launches": launches,
             "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30,
-            "profile": profile_request(svc, req)}
+            "profile": profile_call(lambda: svc.handle(req),
+                                    "mode-0 request")}
 
 
-def profile_request(svc: LocalizerService, req: dict) -> dict:
-    """One more mode-0 request under torch.profiler: wall time, device
-    kernel time by name, and the device's busy share of the wall time."""
+def profile_call(fn, what: str) -> dict:
+    """One more call under torch.profiler: wall time, device kernel time
+    by name, and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.handle(req)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # user annotations (e.g. "Optimizer.step#Adam.step") span kernels
+        # that are counted on their own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -250,7 +544,7 @@ def profile_request(svc: LocalizerService, req: dict) -> dict:
         kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"profiled request: wall {wall_ms:.2f} ms, device kernels "
+    log(f"profiled {what}: wall {wall_ms:.2f} ms, device kernels "
         f"{device_ms:.2f} ms (busy {device_ms / wall_ms:.1%})")
     for name, ms in top:
         log(f"  {ms:8.3f} ms  {name[:100]}")
@@ -316,13 +610,22 @@ def main() -> int:
             log(f"  {name}: {line}")
 
     cfg = Config()
-    kernel = kernel_phase(cfg, args.seed, dev)
+    kernels = [kernel_phase(cfg, args.seed, dev),
+               bwd_kernel_phase(train_cfg(TRAIN_RAYS), args.seed, dev)]
     serving = serving_phase(cfg, args.seed, dev)
+    training = training_phase(train_cfg(TRAIN_RAYS), args.seed, dev)
     cross_check_phase(cfg, args.seed, dev)
+    step_check = step_check_phase(args.seed, dev)
 
-    kernel["launches"] = serving["launches"]["trilinear_fwd"]
+    for k in kernels:
+        by_path = {"serving": serving["launches"][k["name"]],
+                   "training": training["launches"][k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     log(f"serving: {json.dumps(serving)}")
-    print(json.dumps({"kernels": [kernel]}))
+    log(f"training: {json.dumps(training)}")
+    log(f"step check: {json.dumps(step_check)}")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

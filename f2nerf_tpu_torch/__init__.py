@@ -1,7 +1,7 @@
 """f2nerf_tpu_torch — the PyTorch/CUDA port of f2nerf_tpu for NVIDIA Hopper.
 
 Mirrors the JAX package's module layout (``core``, ``ops``, ``kernels``,
-``models``, ``localize``, ``apps``) so each function has a counterpart of
+``models``, ``train``, ``localize``, ``apps``) so each function has a counterpart of
 the same name. The port imports nothing of JAX or of ``f2nerf_tpu``: it
 keeps its own copies of what it needs.
 

@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and training state across from the JAX package.
 
 The JAX params pytree (``f2nerf_tpu/models/renderer.py:57-63``) is
 
@@ -8,7 +8,10 @@ The JAX params pytree (``f2nerf_tpu/models/renderer.py:57-63``) is
 * ``app_emb`` [n_images, 16]
 
 The port keeps that layout and applies weights as ``x @ w``, so every
-array is carried over unchanged (no transposes).
+array is carried over unchanged (no transposes). The occupancy grid
+([2, G, G, G]) carries over as it is, and the optax state of
+``f2nerf_tpu.train.optim.make_optimizer`` maps onto the port's
+``train.optim.Optimizer`` (Adam moments, count and schedule count).
 """
 
 from __future__ import annotations
@@ -33,6 +36,55 @@ def params_from_numpy(tree: Mapping[str, Any],
             out[k] = torch.tensor(np.asarray(v, dtype=np.float32),
                                   device=device)
     return out
+
+
+def occ_grid_from_numpy(grid: Any, device: torch.device | str
+                        ) -> torch.Tensor:
+    """The JAX occupancy grid (numpy) -> a float32 tensor on ``device``."""
+    return torch.tensor(np.asarray(grid, dtype=np.float32), device=device)
+
+
+def _optax_states(state: Any):
+    """Yield the NamedTuple states inside an optax chain state."""
+    if hasattr(state, "_fields"):
+        yield state
+        for v in state:
+            yield from _optax_states(v)
+    elif isinstance(state, (tuple, list)):
+        for v in state:
+            yield from _optax_states(v)
+
+
+def opt_state_from_numpy(optimizer, state: Any) -> None:
+    """Load the JAX optimizer state (after ``jax.tree.map(np.asarray,
+    opt_state)``) into ``optimizer`` (a ``train.optim.Optimizer``).
+
+    optax's ``ScaleByAdamState(count, mu, nu)`` becomes torch Adam's
+    per-param ``step``, ``exp_avg`` and ``exp_avg_sq``; the
+    ``ScaleByScheduleState`` count becomes the LR schedule's count. The
+    state is found by its fields, so this module imports no optax.
+    """
+    adam = sched = None
+    for s in _optax_states(state):
+        if {"count", "mu", "nu"} <= set(s._fields):
+            adam = s
+        elif s._fields == ("count",):
+            sched = s
+    if adam is None or sched is None:
+        raise ValueError("no ScaleByAdamState / ScaleByScheduleState found")
+    mu, nu = flatten(adam.mu), flatten(adam.nu)
+    if set(mu) != set(optimizer.named):
+        raise ValueError(f"state leaves {sorted(mu)} do not match the "
+                         f"optimizer's {sorted(optimizer.named)}")
+    for name, p in optimizer.named.items():
+        optimizer.adam.state[p] = {
+            "step": torch.tensor(float(np.asarray(adam.count)),
+                                 dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(mu[name], np.float32),
+                                    device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32),
+                                       device=p.device)}
+    optimizer.set_count(int(np.asarray(sched.count)))
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:

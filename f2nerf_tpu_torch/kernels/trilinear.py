@@ -1,14 +1,20 @@
-"""Paged hash-grid trilinear contraction, forward: the ``trilinear_fwd``
-CUDA kernel (``csrc/trilinear_fwd.cu``), its plain PyTorch version and
-its wrapper.
+"""Paged hash-grid trilinear contraction: the CUDA kernels
+``trilinear_fwd`` (``csrc/trilinear_fwd.cu``) and ``trilinear_bwd``
+(``csrc/trilinear_bwd.cu``), their plain PyTorch versions and their
+wrappers.
 
-Port of the TPU kernel ``contract_fwd`` / ``_fwd_kernel``
-(``f2nerf_tpu/kernels/trilinear.py:72-87, 146-169``). The TPU kernel
-consumed rows already gathered by XLA; the CUDA kernel gathers them
-itself, so one mode-0 localize request never materializes the
-[N, C*128] rows buffer (1 KB per point and level in bf16).
+* ``trilinear_fwd`` ports the TPU kernel ``contract_fwd`` /
+  ``_fwd_kernel`` (``f2nerf_tpu/kernels/trilinear.py:72-87, 146-169``).
+  The TPU kernel consumed rows already gathered by XLA; the CUDA kernel
+  gathers them itself, so the [N, C*128] rows buffer (1 KB per point and
+  level in bf16) never exists.
+* ``trilinear_bwd`` ports ``contract_bwd_rows`` / ``_bwd_rows_kernel``
+  (``:90-100, 172-195``) together with the per-level ``segment_sum``
+  that reduced its rows into pages (``f2nerf_tpu/ops/hash_paged.py``
+  ``_encode_core_bwd``): it writes the page gradient directly, in a
+  fixed order, so it is deterministic without float atomics.
 
-The wrapper takes the plain version only for tensors on the CPU. For a
+Each wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises.
 """
 
@@ -51,6 +57,10 @@ def _check(haloed, page_idx, local_frac):
     if haloed.dim() != 2 or haloed.shape[1] % ROW_PAD:
         raise ValueError(f"haloed must be [P, C*{ROW_PAD}], got "
                          f"{tuple(haloed.shape)}")
+    _check_points(page_idx, local_frac)
+
+
+def _check_points(page_idx, local_frac):
     if page_idx.dim() != 2:
         raise ValueError(f"page_idx must be [L, N], got "
                          f"{tuple(page_idx.shape)}")
@@ -80,15 +90,7 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
                          f"{_SUPPORTED_CHANNELS}, got {c}")
     if haloed.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"haloed must be bf16 or f32, got {haloed.dtype}")
-    if page_idx.dtype != torch.int32 or local_frac.dtype != torch.float32:
-        raise ValueError("page_idx must be int32 and local_frac float32")
-    for name, t in (("haloed", haloed), ("page_idx", page_idx),
-                    ("local_frac", local_frac)):
-        if t.device != haloed.device:
-            raise ValueError(f"{name} is on {t.device}, haloed on "
-                             f"{haloed.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac)
     from f2nerf_tpu_torch.kernels.build import load_library
 
     lib = load_library("trilinear_fwd")
@@ -113,6 +115,118 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
     return feat
 
 
-# launches of the CUDA kernel in this process (the plain version on the
-# CPU does not count)
+def _check_cuda(**tensors):
+    """dtype, device and contiguity checks shared by the CUDA paths;
+    the first keyword names the reference device."""
+    (ref_name, ref), *_ = tensors.items()
+    page_idx, local_frac = tensors["page_idx"], tensors["local_frac"]
+    if page_idx.dtype != torch.int32 or local_frac.dtype != torch.float32:
+        raise ValueError("page_idx must be int32 and local_frac float32")
+    for name, t in tensors.items():
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {ref_name} on "
+                             f"{ref.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def trilinear_bwd_ref(g: torch.Tensor, page_idx: torch.Tensor,
+                      local_frac: torch.Tensor, n_pages: int,
+                      dtype: torch.dtype = torch.float32,
+                      chunk: int = 20480) -> torch.Tensor:
+    """Plain version: per level and chunk of ``chunk`` points, the rows
+    cotangent g (x) weight_row (``_drows_level``'s jnp branch,
+    ``f2nerf_tpu/ops/hash_paged.py:389-393``), summed into pages with
+    ``index_add_`` in f32, stored in ``dtype``."""
+    from f2nerf_tpu_torch.ops.hash_paged import weight_row
+
+    n_levels, n = page_idx.shape
+    c = g.shape[1] // n_levels
+    chunk = max(int(chunk), 1)
+    out = torch.zeros((n_pages, c * ROW_PAD), dtype=torch.float32,
+                      device=g.device)
+    for lvl in range(n_levels):
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            lf = local_frac[lvl, s:e]
+            w = weight_row(lf[:, 0:3].to(torch.int32), lf[:, 3:6])
+            d_rows = (g[s:e, lvl * c:(lvl + 1) * c].float()[:, :, None]
+                      * w[:, None, :]).reshape(e - s, c * ROW_PAD)
+            out.index_add_(0, page_idx[lvl, s:e].long(), d_rows)
+    return out.to(dtype)
+
+
+def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
+                  local_frac: torch.Tensor, n_pages: int,
+                  dtype: torch.dtype = torch.float32,
+                  chunk: int = 20480) -> torch.Tensor:
+    """d_haloed [n_pages, C*128] in ``dtype`` (bf16 or f32) from the
+    cotangent g [N, L*C] f32 of ``trilinear_fwd``'s output and the same
+    page_idx [L, N] int32 / local_frac [L, N, 6] f32 it was given.
+
+    On the card: a stable sort of the page keys (glue), then the two
+    passes of ``csrc/trilinear_bwd.cu``. Two calls on the same inputs
+    give bitwise-equal results. ``chunk`` bounds memory of the plain
+    version only.
+    """
+    _check_points(page_idx, local_frac)
+    n_levels, n = page_idx.shape
+    if g.dim() != 2 or g.shape[0] != n or g.shape[1] % n_levels:
+        raise ValueError(f"g must be [N, L*C] = [{n}, {n_levels}*C], got "
+                         f"{tuple(g.shape)}")
+    if g.device.type == "cpu":
+        return trilinear_bwd_ref(g, page_idx, local_frac, n_pages, dtype,
+                                 chunk)
+    if g.device.type != "cuda":
+        raise ValueError(f"trilinear_bwd runs on cuda or cpu, not "
+                         f"{g.device}")
+    c = g.shape[1] // n_levels
+    if c not in _SUPPORTED_CHANNELS:
+        raise ValueError(f"trilinear_bwd supports C in "
+                         f"{_SUPPORTED_CHANNELS}, got {c}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"d_haloed must be bf16 or f32, got {dtype}")
+    if g.dtype != torch.float32:
+        raise ValueError(f"g must be float32, got {g.dtype}")
+    _check_cuda(g=g, page_idx=page_idx, local_frac=local_frac)
+    from f2nerf_tpu_torch.kernels.build import load_library
+
+    lib = load_library("trilinear_bwd")
+    fn = lib.trilinear_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.trilinear_bwd_tile_size.argtypes = []
+    lib.trilinear_bwd_tile_size.restype = ctypes.c_int
+    tile = lib.trilinear_bwd_tile_size()
+    d_haloed = torch.zeros((n_pages, c * ROW_PAD), dtype=dtype,
+                           device=g.device)
+    m = n * n_levels
+    if m == 0:
+        return d_haloed
+    # glue: the entries of each page become one run of the sorted order,
+    # in ascending entry index (stable); keys clamped as the forward
+    # clamps its gather
+    keys = page_idx.reshape(m).clamp(0, n_pages - 1)
+    skey, perm = torch.sort(keys, stable=True)
+    partial = torch.empty((-(-m // tile), 2, c * ROW_PAD),
+                          dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(g.data_ptr(), local_frac.data_ptr(), skey.data_ptr(),
+                perm.data_ptr(), d_haloed.data_ptr(),
+                int(dtype == torch.bfloat16), partial.data_ptr(), n,
+                n_levels, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"trilinear_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    trilinear_bwd.launches += 1
+    return d_haloed
+
+
+# launches of each CUDA kernel in this process (the plain versions on
+# the CPU do not count)
 trilinear_fwd.launches = 0
+trilinear_bwd.launches = 0

@@ -1,5 +1,6 @@
 """Anchored hash-grid scene field (port of
-``f2nerf_tpu/models/hash_field.py``, paged mode, forward).
+``f2nerf_tpu/models/hash_field.py``, paged mode). Differentiable in
+``feat_pool`` and the head.
 
 Contraction -> paged hash encode -> Linear(L*C -> 16) head. Parameters
 are a plain dict with the JAX package's layout
@@ -8,7 +9,9 @@ are a plain dict with the JAX package's layout
 
 A params dict may also carry ``"haloed"``, the haloed table already in
 its compute dtype: callers whose params never change (the localizer)
-build it once instead of on every query.
+build it once instead of on every query. A query that would
+differentiate ``feat_pool`` refuses the cached table, whose gradient
+would never reach the pool.
 """
 
 from __future__ import annotations
@@ -87,12 +90,19 @@ def query(params: Params, points: torch.Tensor, cfg: ModelConfig,
     if cfg.hash_mode != "paged" or cfg.warp_mode != "contract":
         raise NotImplementedError(
             "only hash_mode='paged' with warp_mode='contract' is ported")
+    haloed = params.get("haloed")
+    if (haloed is not None and params["feat_pool"].requires_grad
+            and torch.is_grad_enabled()):
+        raise ValueError(
+            "params carry a cached 'haloed' table while feat_pool requires "
+            "grad: the gradient would never reach feat_pool; drop "
+            "'haloed' from params to train")
     x = points if pre_contracted else contract(points,
                                                cfg.contraction_radius)
     feat = hash_paged.paged_encode(
         x, params["feat_pool"], paged_meta(cfg),
         compute_dtype=compute_dtype(cfg), chunk=cfg.encode_chunk,
-        haloed=params.get("haloed"))
+        haloed=haloed)
     feat = _apply_level_weights(feat, level_weights, cfg)
     return feat @ params["mlp"]["w"] + params["mlp"]["b"]
 

@@ -1,15 +1,15 @@
 """Occupancy grid: density-guided ray sampling (port of
-``f2nerf_tpu/models/occupancy.py``, VALIDATE path).
+``f2nerf_tpu/models/occupancy.py``).
 
 A [2, G, G, G] density grid over the contracted domain [-2, 2)^3
 (channel 0 a max-EMA that decides occupancy, channel 1 a mean-EMA for
-transmittance-aware eligibility). Sampling splits each ray into
-``occ_segments`` segments, looks up each midpoint's cell, and keeps
-``occ_keep`` segments chosen evenly among the occupied, eligible ones,
-each with ``occ_samples_per_segment`` samples. Static shapes throughout.
-
-The grid refresh (``update_grid``) and the TRAIN sampling branches
-(stratified jitter, explore slots) belong to the training slice.
+transmittance-aware eligibility), refreshed by :func:`update_grid` at
+jittered cell centres, one strided 1/K of the cells per call. Sampling
+splits each ray into ``occ_segments`` segments, looks up each midpoint's
+cell, and keeps ``occ_keep`` segments chosen evenly among the occupied,
+eligible ones, each with ``occ_samples_per_segment`` samples. TRAIN
+jitters the ranks and the samples and adds the explore slots. Static
+shapes throughout.
 """
 
 from __future__ import annotations
@@ -85,26 +85,72 @@ def occ_values(grid: torch.Tensor, cfg: ModelConfig,
                         torch.clamp_max(gmean, SIGMA_EMA_MAX).reshape(-1)])
 
 
-def update_grid(*args, **kwargs):
-    raise NotImplementedError(
-        "occupancy.update_grid belongs to the training slice, not yet "
-        "ported")
+def refresh_points(cfg: ModelConfig) -> int:
+    """Cells one :func:`update_grid` call queries: G^3 / K."""
+    g, k_sub = cfg.occ_grid_res, cfg.occ_refresh_phases
+    if (g ** 3) % k_sub:
+        raise ValueError("occ_refresh_phases must divide occ_grid_res^3")
+    return g ** 3 // k_sub
+
+
+def update_grid(grid: torch.Tensor, density_fn, cfg: ModelConfig,
+                u: torch.Tensor, phase: int = 0) -> torch.Tensor:
+    """Phased EMA refresh (JAX ``update_grid``, ``occupancy.py:130-176``).
+
+    Decays the whole max channel and queries ``density_fn`` ([M, 3]
+    contracted points -> [M] sigma) at the jittered centres of the cells
+    whose flat index is ``phase`` mod K; those cells get
+    max(decay * max, sigma) and mean-EMA (1 - a) * mean + a * sigma.
+    Non-finite or exploded sigma is clamped to ``SIGMA_EMA_MAX``. The
+    jitter is (u - 0.5) * cell with ``u`` the U[0,1) draws [M, 3]
+    (``train.step.draw_noise`` makes them). Returns the new grid;
+    ``grid`` is not modified.
+    """
+    g = cfg.occ_grid_res
+    k_sub = cfg.occ_refresh_phases
+    m = refresh_points(cfg)
+    dev = grid.device
+    cell = 2.0 * DOMAIN / g
+    flat = torch.arange(m, dtype=torch.int32, device=dev) * k_sub + phase
+    ijk = torch.stack([flat // (g * g), (flat // g) % g, flat % g],
+                      dim=-1).float()
+    centers = (ijk + 0.5) * cell - DOMAIN
+    sigma = density_fn(centers + (u - 0.5) * cell)
+    sigma = torch.where(torch.isfinite(sigma), sigma,
+                        torch.full((), SIGMA_EMA_MAX, device=dev))
+    sigma = torch.clamp_max(sigma, SIGMA_EMA_MAX)             # [M]
+    gmax = grid[0] if grid.dim() == 4 else grid
+    new_max = (gmax * cfg.occ_decay).reshape(m, k_sub)
+    new_max[:, phase] = torch.maximum(new_max[:, phase], sigma)
+    new_max = new_max.reshape(g, g, g)
+    if grid.dim() != 4:          # legacy single-channel grid
+        return new_max
+    a = cfg.occ_mean_ema
+    new_mean = grid[1].reshape(m, k_sub).clone()
+    new_mean[:, phase] = new_mean[:, phase] * (1.0 - a) + sigma * a
+    return torch.stack([new_max, new_mean.reshape(g, g, g)])
 
 
 def sample_rays_occ(rays_o: torch.Tensor, rays_d: torch.Tensor,
                     vals: torch.Tensor, cfg: ModelConfig,
-                    key=None) -> OccSamples:
-    """Occupancy-guided sampling at segment midpoints (VALIDATE).
+                    rank_u: torch.Tensor | None = None,
+                    within_u: torch.Tensor | None = None,
+                    explore: torch.Tensor | None = None) -> OccSamples:
+    """Occupancy-guided stratified sampling (static shapes).
 
     Args:
       rays_o/rays_d: [R, 3] (dirs normalized here).
       vals: [2, G^3] from :func:`occ_values` (a [G^3] bool/float grid
         also works: eligibility degrades to plain occupancy).
-      key: must be None; TRAIN jitter and explore slots are not ported.
+      rank_u, within_u: TRAIN draws U[0,1) [R, keep] (rank jitter) and
+        [R, keep, sps] (within-segment jitter); both None is VALIDATE
+        (midpoints, no explore slots).
+      explore: TRAIN [R, 1] bool exploration rays, required when
+        cfg.occ_explore_eps > 0 (they ignore the transmittance cut).
     """
-    if key is not None:
-        raise NotImplementedError(
-            "TRAIN occupancy sampling belongs to the training slice")
+    train = rank_u is not None
+    if train and within_u is None:
+        raise ValueError("TRAIN sampling needs both rank_u and within_u")
     r = rays_o.shape[0]
     dev = rays_o.device
     n_seg = cfg.occ_segments
@@ -127,7 +173,7 @@ def sample_rays_occ(rays_o: torch.Tensor, rays_d: torch.Tensor,
     else:
         occ_seg = elig_seg = vals.float()[cell]
     occ = occ_seg > 0.0                                  # [R, n_seg]
-    occ_all_orig = occ
+    occ_all = occ_all_orig = occ
     if cfg.occ_trans_eps > 0.0:
         # transmittance-aware eligibility from the mean-sigma channel,
         # each segment's optical depth capped at occ_elig_tau_cap
@@ -136,24 +182,58 @@ def sample_rays_occ(rays_o: torch.Tensor, rays_d: torch.Tensor,
         cum_tau = torch.cumsum(tau, dim=-1) - tau        # exclusive
         occ = occ & (torch.exp(-cum_tau) > cfg.occ_trans_eps)
 
-    # 2. evenly spaced ranks among the M occupied segments
+    # exploration rays (TRAIN only) ignore the transmittance cut
+    if train and cfg.occ_explore_eps > 0.0:
+        if explore is None:
+            raise ValueError("occ_explore_eps > 0 needs the explore draws")
+        occ = torch.where(explore, occ_all, occ)
+
+    # 2. stratified ranks among the M occupied segments: slot j picks
+    # occupied-rank floor((j + u) * M / K), u = 0.5 in VALIDATE. In
+    # TRAIN the last occ_explore_slots slots stratify over the occupied
+    # but ineligible segments instead (all occupied ones when there are
+    # none, or when the explore is not targeted).
+    n_exp = min(cfg.occ_explore_slots, keep - 1) if train else 0
+    k_base = keep - n_exp
     cum = torch.cumsum(occ.to(torch.int32), dim=-1)      # [R, n_seg]
     m = cum[:, -1:]                                      # [R, 1]
     j = torch.arange(keep, dtype=torch.float32, device=dev)[None, :]
-    u = 0.5
+    u = rank_u if train else 0.5
     ranks = torch.where(
-        m > keep,
-        torch.floor((j + u) * m.float() / keep),
+        m > k_base,
+        torch.floor((j + u) * m.float() / k_base),
         j.expand(r, keep)).to(torch.int32)               # [R, keep]
-    valid_seg = ranks < m                                # [R, keep]
+    if n_exp:
+        if cfg.occ_explore_targeted:
+            occ_tgt = occ_all & ~occ
+            has_tgt = torch.any(occ_tgt, dim=-1, keepdim=True)
+            occ_all = torch.where(has_tgt, occ_tgt, occ_all)
+        cum_all = torch.cumsum(occ_all.to(torch.int32), dim=-1)
+        m_all = cum_all[:, -1:]
+        ranks_exp = torch.floor(
+            (j - k_base + u) * m_all.float() / n_exp).to(torch.int32)
+        is_exp = (torch.arange(keep, device=dev) >= k_base)[None, :]
+        ranks = torch.where(is_exp, ranks_exp, ranks)
+        m_sel = torch.where(is_exp, m_all, m)            # [R, keep]
+        cum_sel = torch.where(is_exp[:, :, None], cum_all[:, None, :],
+                              cum[:, None, :])           # [R, keep, n_seg]
+        occ_sel = torch.where(is_exp[:, :, None], occ_all[:, None, :],
+                              occ[:, None, :])
+    else:
+        m_sel = m
+        cum_sel = cum[:, None, :]
+        occ_sel = occ[:, None, :]
+    valid_seg = ranks < m_sel                            # [R, keep]
 
     # 3. rank -> segment index: unique s with occ[s] & cum[s] == rank+1
-    hit = (cum[:, None, :] == (ranks + 1)[:, :, None]) & occ[:, None, :]
+    hit = (cum_sel == (ranks + 1)[:, :, None]) & occ_sel
     seg_idx = torch.sum(
         hit * torch.arange(n_seg, dtype=torch.int32, device=dev),
         dim=-1)                                          # [R, keep]
 
-    # 4. samples at the centres of sps equal parts of each kept segment
+    # 4. stratified samples inside each kept segment (the centres of sps
+    # equal parts in VALIDATE)
+    u = within_u if train else 0.5
     base = cfg.sample_near + seg_idx.float()[..., None] * seg_len
     within = (torch.arange(sps, dtype=torch.float32, device=dev)
               + u) * (seg_len / sps)

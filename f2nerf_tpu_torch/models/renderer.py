@@ -1,5 +1,5 @@
 """Volume renderer: sampler -> hash field -> SH shader -> compositing
-(port of ``f2nerf_tpu/models/renderer.py``, VALIDATE mode).
+(port of ``f2nerf_tpu/models/renderer.py``, TRAIN and VALIDATE modes).
 
 Reference ``src/renderer.{hpp,cpp}``. A single dense masked pass replaces
 the reference's two-pass early-stop compaction; it is exact because the
@@ -7,8 +7,8 @@ keep mask is a prefix of each ray (ops/composite.py).
 
 Params are a plain dict with the JAX package's layout:
 ``{"field": {...}, "shader": {...}, "app_emb": [n_images, 16]}``.
-TRAIN mode (jitter, random background, per-image embedding) and the
-dense two-pass path belong to the training slice.
+The dense sampler's two-pass TRAIN path (``dense_two_pass``, off by
+default) is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +50,9 @@ def init(generator: torch.Generator, cfg: ModelConfig, n_images: int,
 
 def density_at(params: Params, points: torch.Tensor, cfg: ModelConfig,
                contracted: bool = False) -> torch.Tensor:
-    """[N, 3] points -> [N] sigma."""
+    """[N, 3] points -> [N] sigma (the occupancy refresh runs it under
+    ``torch.no_grad()``; the global-sparsity loss differentiates it).
+    ``contracted=True`` for points already in contracted space."""
     feat = hash_field.query(params["field"], points, cfg,
                             pre_contracted=contracted)
     return density_activation(feat[..., 0], cfg.density_shift)
@@ -59,33 +61,59 @@ def density_at(params: Params, points: torch.Tensor, cfg: ModelConfig,
 def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
            cfg: ModelConfig, occ_vals: torch.Tensor | None = None,
            level_weights: torch.Tensor | None = None,
-           eval_emb: torch.Tensor | None = None) -> RenderResult:
-    """Render a batch of rays in VALIDATE mode: no jitter, grey (0.5)
-    background, no per-image embedding.
+           eval_emb: torch.Tensor | None = None,
+           emb_idx: torch.Tensor | None = None,
+           noise=None) -> RenderResult:
+    """Render a batch of rays.
+
+    VALIDATE (``noise`` None): no jitter, grey (0.5) background, and the
+    optional ``eval_emb`` [app_emb_dim] added to the shading features.
+    TRAIN (``noise`` given, e.g. a ``train.step.StepNoise``): the random
+    background ``noise.bg`` [R, 3], the samplers jittered by
+    ``noise.march`` (dense) or ``noise.rank`` / ``noise.within`` /
+    ``noise.explore`` (occ), and the per-image embedding
+    ``app_emb[emb_idx]`` when ``emb_idx`` [R] is given (JAX ``render``,
+    ``renderer.py:110-175``).
 
     Args:
       rays_o, rays_d: [R, 3] ray origins/directions (dirs need not be unit).
       occ_vals: [2, G^3] from ``occupancy.occ_values``; required when
         cfg.sampler_mode == 'occ'.
-      eval_emb: optional [app_emb_dim] appearance vector added to the
-        shading features.
     """
     r = rays_o.shape[0]
-    bg_color = torch.full((r, 3), 0.5, device=rays_o.device)
+    train = noise is not None
+    if train:
+        if cfg.sampler_mode == "dense" and cfg.dense_two_pass:
+            raise NotImplementedError(
+                "the dense two-pass TRAIN renderer (dense_two_pass) is "
+                "not ported")
+        bg_color = noise.bg
+    else:
+        bg_color = torch.full((r, 3), 0.5, device=rays_o.device)
     if cfg.sampler_mode == "occ":
         if occ_vals is None:
             raise ValueError("sampler_mode='occ' requires occ_vals")
-        smp = occupancy.sample_rays_occ(rays_o, rays_d, occ_vals, cfg)
+        smp = occupancy.sample_rays_occ(
+            rays_o, rays_d, occ_vals, cfg,
+            rank_u=noise.rank if train else None,
+            within_u=noise.within if train else None,
+            explore=noise.explore if train else None)
         explore = smp.explore
     else:
-        smp = sampler.sample_rays(rays_o, rays_d, cfg)
+        smp = sampler.sample_rays(rays_o, rays_d, cfg,
+                                  u=noise.march if train else None)
         explore = None
+    if train:
+        emb = (None if emb_idx is None
+               else params["app_emb"][emb_idx][:, None, :])
+    else:
+        emb = None if eval_emb is None else eval_emb[None, None, :]
     return _render_samples(params, smp.pts, smp.dirs, smp.t, smp.dt,
-                           explore, bg_color, cfg, level_weights, eval_emb)
+                           explore, bg_color, cfg, level_weights, emb)
 
 
 def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,
-                    level_weights, eval_emb=None) -> RenderResult:
+                    level_weights, emb=None) -> RenderResult:
     """Field query + shading + masked compositing over [R, S] samples."""
     r, s = pts.shape[0], pts.shape[1]
     feat = hash_field.query_rays(params["field"], pts, cfg,
@@ -94,8 +122,8 @@ def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,
     # shading feature: [1, feat_1..F-1] (renderer.cpp:95-99)
     shading_feat = torch.cat([torch.ones_like(feat[..., :1]),
                               feat[..., 1:]], dim=-1)
-    if eval_emb is not None:
-        shading_feat = shading_feat + eval_emb[None, None, :]
+    if emb is not None:
+        shading_feat = shading_feat + emb
     dirs = ray_dirs[:, None, :].expand(r, s, 3)
     colors = sh_shader.query(params["shader"], shading_feat, dirs, cfg)
     # where(dt > 0) rather than a product: sigma is unbounded and

@@ -24,17 +24,17 @@ class Samples(NamedTuple):
 
 
 def sample_rays(rays_o: torch.Tensor, rays_d: torch.Tensor,
-                cfg: ModelConfig,
-                generator: torch.Generator | None = None) -> Samples:
-    """Stratified-march rays; ``generator=None`` is VALIDATE (no jitter)."""
+                cfg: ModelConfig, u: torch.Tensor | None = None) -> Samples:
+    """Stratified-march rays. TRAIN jitters each step by the U[0,1)
+    draws ``u`` [R, S] (``train.step.draw_noise`` makes them); ``u=None``
+    is VALIDATE (no jitter)."""
     r = rays_o.shape[0]
     s = cfg.n_samples
     dirs = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
-    if generator is None:
+    if u is None:
         noise = torch.ones((r, s), dtype=torch.float32, device=rays_o.device)
     else:
-        noise = torch.rand((r, s), generator=generator,
-                           device=rays_o.device) - 0.5 + 1.0
+        noise = u - 0.5 + 1.0
     t = cfg.sample_near + torch.cumsum(noise, dim=-1) * cfg.sample_l
     pts = rays_o[:, None, :] + dirs[:, None, :] * t[..., None]
     dt = torch.diff(t, dim=-1, prepend=t[:, :1])

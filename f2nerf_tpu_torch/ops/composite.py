@@ -1,6 +1,7 @@
 """Dense masked volume-rendering ops (port of
 ``f2nerf_tpu/ops/composite.py``: ``exclusive_cumsum``,
-``density_activation``, ``composite``).
+``density_activation``, ``composite`` and the two ray-spread losses
+``weight_variance`` and ``distortion_loss``).
 
 Samples live in a dense ``[n_rays, n_samples]`` layout; the reference's
 early-stop keep mask (trans > eps) is a prefix of each ray, so masking
@@ -55,3 +56,40 @@ def composite(sec_density: torch.Tensor, colors: torch.Tensor,
     depth = (torch.sum(weights * (t + 1e-2), dim=-1)
              / (1.0 - last_trans + 1e-4))
     return rgb, depth, weights, mask
+
+
+def weight_variance(weights: torch.Tensor, mask: torch.Tensor,
+                    scale: float = 16.0,
+                    pos: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-ray variance [R] of the sample-weight distribution (reference
+    src/CustomOps/CustomOps.cu:13-67, WeightVarLoss). Positions are
+    i/scale for the i-th sample unless ``pos`` [R, S] is given (the train
+    step passes t / (sample_l * 16), the spatial form the occupancy
+    sampler needs)."""
+    s = weights.shape[-1]
+    if pos is None:
+        pos = (torch.arange(s, dtype=torch.float32, device=weights.device)
+               / scale)[None, :]
+    w = weights * mask
+    weight_sum = torch.sum(w, dim=-1) + 1e-6
+    mean = torch.sum(w * pos, dim=-1) / weight_sum
+    bias = pos - mean[..., None]
+    return torch.sum(w * bias * bias, dim=-1)
+
+
+def distortion_loss(weights: torch.Tensor, t: torch.Tensor, dt: torch.Tensor,
+                    mask: torch.Tensor, march_len: float) -> torch.Tensor:
+    """Normalized mip-NeRF-360-style distortion per ray [R]:
+    sum_{i,j} w_i w_j |s_i - s_j| + (1/3) sum_i w_i^2 d_i, with s the
+    interval midpoints and d the widths over ``march_len``, in O(S) by
+    exclusive prefix sums (nonzero-weight positions are monotone along a
+    ray)."""
+    w = weights * mask
+    s_mid = (t - 0.5 * dt) / march_len
+    d = dt / march_len
+    wm = w * s_mid
+    cw = exclusive_cumsum(w)
+    cwm = exclusive_cumsum(wm)
+    loss_bi = 2.0 * torch.sum(w * (s_mid * cw - cwm), dim=-1)
+    loss_uni = torch.sum(w * w * d, dim=-1) / 3.0
+    return loss_bi + loss_uni

@@ -1,5 +1,6 @@
 """Paged multi-level hash-grid encoding (port of
-``f2nerf_tpu/ops/hash_paged.py``, forward only).
+``f2nerf_tpu/ops/hash_paged.py``; the page gradient, not yet the point
+gradient).
 
 The layout is the JAX package's, unchanged, so converted parameters and
 page indices agree exactly:
@@ -14,11 +15,16 @@ page indices agree exactly:
 * haloed rows are channel-major and lane-padded: [C, 128] per page
   (125 cells + 3 pad).
 
-The forward encode is one call of the ``trilinear_fwd`` kernel
-(kernels/trilinear.py), which fuses the per-level row gather with the
-trilinear contraction. The backward (page-gradient ``segment_sum`` and
-the point-gradient path) belongs to the training and pose-gradient
-slices and is not ported yet.
+The encode is :class:`_EncodeCore`, the counterpart of the JAX
+``_encode_core`` custom VJP: its forward is one call of the
+``trilinear_fwd`` kernel (kernels/trilinear.py), which fuses the
+per-level row gather with the trilinear contraction; its backward is one
+call of ``trilinear_bwd``, which writes the gradient of the haloed table
+with the page reduction fused in (deterministic, no float atomics). The
+transpose of the halo (``halo_pages``' rolls and concatenations) is left
+to autograd, as the JAX package leaves it to XLA. The point gradient
+(``contract_bwd_frac``, localizer modes 1/2) is not ported yet: asking
+for it raises.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from f2nerf_tpu_torch.kernels.trilinear import ROW_PAD, trilinear_fwd
+from f2nerf_tpu_torch.kernels.trilinear import (ROW_PAD, trilinear_bwd,
+                                                trilinear_fwd)
 
 BLOCK = 4            # cells per page axis
 HALO = BLOCK + 1     # haloed page axis
@@ -198,19 +205,50 @@ def weight_row(local: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(w, (0, ROW_PAD - PAGE_CELLS))
 
 
+class _EncodeCore(torch.autograd.Function):
+    """feat [N, L*C] f32 from haloed [P, C*128], page_idx [L, N] and
+    local_frac [L, N, 6]; differentiable in ``haloed`` (JAX
+    ``_encode_core``, ``f2nerf_tpu/ops/hash_paged.py:419-528``)."""
+
+    @staticmethod
+    def forward(ctx, haloed, page_idx, local_frac, chunk):
+        ctx.save_for_backward(page_idx, local_frac)
+        ctx.n_pages = haloed.shape[0]
+        ctx.dtype = haloed.dtype
+        ctx.chunk = chunk
+        return trilinear_fwd(haloed, page_idx, local_frac, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.needs_input_grad[2]:
+            raise NotImplementedError(
+                "the point gradient of the paged encode (the TPU kernel "
+                "contract_bwd_frac, localizer modes 1/2) is not ported "
+                "yet; it belongs to the next slice of the port")
+        page_idx, local_frac = ctx.saved_tensors
+        d_haloed = None
+        if ctx.needs_input_grad[0]:
+            # in haloed's dtype, as the JAX backward returns it
+            d_haloed = trilinear_bwd(g.float().contiguous(), page_idx,
+                                     local_frac, ctx.n_pages, ctx.dtype,
+                                     chunk=ctx.chunk)
+        return d_haloed, None, None, None
+
+
 def paged_encode(points: torch.Tensor, pages: torch.Tensor,
                  meta: PagedMeta, compute_dtype=torch.bfloat16,
                  chunk: int = 65536,
                  haloed: torch.Tensor | None = None) -> torch.Tensor:
-    """Encode points against the paged hash grid (forward).
+    """Encode points against the paged hash grid; differentiable in
+    ``pages`` (and in ``haloed`` when it is given).
 
     Args:
       points: [N, 3] contracted points.
       pages: [P_total, C, 4, 4, 4] canonical feature pages (fp32 master).
       meta: from :func:`make_paged_meta`.
       compute_dtype: dtype of the haloed table.
-      chunk: points per chunk of the plain (CPU) version; the CUDA
-        kernel needs no chunking, and the output does not depend on it.
+      chunk: points per chunk of the plain (CPU) versions; the CUDA
+        kernels need no chunking, and the output does not depend on it.
       haloed: optional precomputed ``halo_pages(pages, meta)`` in
         ``compute_dtype`` (the localizer builds it once, since its
         params never change while serving).
@@ -222,4 +260,4 @@ def paged_encode(points: torch.Tensor, pages: torch.Tensor,
         haloed = halo_pages(pages, meta).to(compute_dtype)
     page_idx, local, frac = page_indices(points, meta)
     local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
-    return trilinear_fwd(haloed, page_idx, local_frac, chunk=chunk)
+    return _EncodeCore.apply(haloed, page_idx, local_frac, chunk)

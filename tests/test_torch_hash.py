@@ -10,11 +10,20 @@ Tolerances:
   atol 1e-5. (The JAX jnp branch rounds the trilinear weights to bf16,
   so it differs from the kernel by ~3e-3; the port, like the kernel,
   keeps the weights in f32.)
+* fp32 encode backward (the page gradient through ``_EncodeCore`` and
+  the halo transpose) against ``jax.grad`` of the JAX encode: atol
+  1e-6 x the largest |grad| (f32 sums of a few hundred terms per cell);
+* bf16 page gradient against ``contract_bwd_rows`` in interpret mode
+  plus a ``segment_sum``: the kernel rounds every g*w term to bf16
+  (2^-8 of each term) and the port rounds once, after an f32 sum (2^-8
+  of the sum), so each cell may differ by 2^-7 x the sum of its terms'
+  magnitudes (computed from |g|; measured up to 0.0071 x).
 """
 
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -210,3 +219,103 @@ def test_level_scales_match():
 def test_dataclass_fields_are_the_same():
     assert ([f.name for f in dataclasses.fields(TModelConfig)]
             == [f.name for f in dataclasses.fields(JModelConfig)])
+
+
+def _grad_inputs(meta, n, seed):
+    pages, pts = _pages_points(meta, n=n, seed=seed)
+    g = np.random.default_rng(seed + 100).normal(
+        size=(n, meta.n_levels * meta.n_channels)).astype(np.float32)
+    return pages, pts, g
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_encode_backward_fp32(name):
+    jm, tm = _metas(name)
+    pages, pts, g = _grad_inputs(jm, 3000, 20)
+    ref = np.asarray(jax.grad(lambda p: jnp.sum(jhp.paged_encode(
+        jnp.asarray(pts), p, jm, compute_dtype=jnp.float32,
+        use_pallas=False, point_grads=False) * g))(jnp.asarray(pages)))
+    tp = torch.from_numpy(pages).requires_grad_(True)
+    feat = thp.paged_encode(torch.from_numpy(pts), tp, tm,
+                            compute_dtype=torch.float32, chunk=1000)
+    (feat * torch.from_numpy(g)).sum().backward()
+    assert tp.grad.shape == pages.shape
+    scale = float(np.abs(ref).max())
+    assert scale > 1.0
+    np.testing.assert_allclose(tp.grad.numpy(), ref, rtol=0,
+                               atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
+    jm, tm = _metas(name)
+    n = 2048                    # a multiple of the Pallas TILE (1024)
+    pages, pts, g = _grad_inputs(jm, n, 21)
+    pidx, local, frac = jhp._page_indices_lm(jnp.asarray(pts), jm)
+    c = jm.n_channels
+    ref = jnp.zeros((jm.total_pages, c * jhp.ROW_PAD), jnp.float32)
+    for lvl in range(jm.n_levels):
+        d_rows = jtri.contract_bwd_rows(
+            local[lvl][:, None, :], frac[lvl][:, None, :],
+            jnp.asarray(g[:, lvl * c:(lvl + 1) * c]), 1, c, jnp.bfloat16)
+        assert d_rows.dtype == jnp.bfloat16
+        ref = ref + jax.ops.segment_sum(d_rows.astype(jnp.float32),
+                                        pidx[lvl],
+                                        num_segments=jm.total_pages)
+    ref = np.asarray(ref)
+    tpidx, tlocal, tfrac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([tlocal.float(), tfrac], dim=-1)
+    out = ttri.trilinear_bwd(torch.from_numpy(g), tpidx, lf,
+                             tm.total_pages, torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    mag = ttri.trilinear_bwd_ref(torch.from_numpy(np.abs(g)), tpidx, lf,
+                                 tm.total_pages).numpy()
+    err = np.abs(out.float().numpy() - ref)
+    assert np.all(err <= 2.0 ** -7 * mag + 1e-30)
+    assert float(mag.max()) > 1.0
+    # through the whole encode and the halo transpose: the port's bf16
+    # page gradient against the JAX halo transpose of that reference
+    _, halo_vjp = jax.vjp(lambda p: jhp.halo_pages(p, jm),
+                          jnp.asarray(pages))
+    (ref_pages,) = halo_vjp(jnp.asarray(ref))
+    (mag_pages,) = halo_vjp(jnp.asarray(mag))
+    tp = torch.from_numpy(pages).requires_grad_(True)
+    feat = thp.paged_encode(torch.from_numpy(pts), tp, tm,
+                            compute_dtype=torch.bfloat16)
+    (feat * torch.from_numpy(g)).sum().backward()
+    err = np.abs(tp.grad.numpy() - np.asarray(ref_pages))
+    assert np.all(err <= 2.0 ** -7 * np.asarray(mag_pages) + 1e-30)
+
+
+def test_point_gradient_raises():
+    """The point-gradient path is the next slice's: asking for it raises
+    (it never returns zeros)."""
+    _, tm = _metas("tiny")
+    pages, pts, _ = _grad_inputs(tm, 100, 22)
+    x = torch.from_numpy(pts).requires_grad_(True)
+    feat = thp.paged_encode(x, torch.from_numpy(pages), tm,
+                            compute_dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="contract_bwd_frac"):
+        feat.sum().backward()
+    assert x.grad is None
+
+
+def test_trilinear_bwd_ref_is_the_cpu_path():
+    """On CPU tensors the wrapper is the plain version and launches no
+    kernel; the chunking does not change the result; bad shapes raise."""
+    _, tm = _metas("mixed")
+    pages, pts, g = _grad_inputs(tm, 1001, 23)
+    pidx, local, frac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    gt = torch.from_numpy(g)
+    before = ttri.trilinear_bwd.launches
+    a = ttri.trilinear_bwd(gt, pidx, lf, tm.total_pages, chunk=256)
+    b = ttri.trilinear_bwd_ref(gt, pidx, lf, tm.total_pages, chunk=4096)
+    assert ttri.trilinear_bwd.launches == before
+    assert a.shape == (tm.total_pages, tm.n_channels * 128)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    assert float(a[:, 125::128].abs().max()) == 0.0     # pad slots
+    with pytest.raises(ValueError):
+        ttri.trilinear_bwd(gt[:-1], pidx, lf, tm.total_pages)
+    with pytest.raises(ValueError):
+        ttri.trilinear_bwd(gt, pidx, lf[:, :-1], tm.total_pages)

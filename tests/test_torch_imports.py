@@ -42,7 +42,9 @@ def _jax_like(loaded):
 def test_port_module_list_is_complete():
     assert "f2nerf_tpu_torch.kernels.trilinear" in PORT_MODULES
     assert "f2nerf_tpu_torch.apps.serve" in PORT_MODULES
-    assert len(PORT_MODULES) >= 20
+    assert "f2nerf_tpu_torch.train.step" in PORT_MODULES
+    assert "f2nerf_tpu_torch.train.optim" in PORT_MODULES
+    assert len(PORT_MODULES) >= 23
 
 
 @pytest.fixture(scope="module")
@@ -64,5 +66,6 @@ def test_chip_smoke_imports_no_jax(smoke_loaded):
 def test_chip_smoke_imports_no_uninstalled(smoke_loaded, banned):
     loaded = smoke_loaded
     assert "f2nerf_tpu_torch.apps.serve" in loaded
+    assert "f2nerf_tpu_torch.train.step" in loaded
     assert not any(m == banned or m.startswith(banned + ".")
                    for m in loaded)

@@ -6,9 +6,15 @@ on the machine with the card it runs without them:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
-Tolerance: atol 1e-5 in f32 and in bf16 (rows are widened to f32 and
-weighted in f32 on both sides; only the order of the 8-term sums
-differs).
+Tolerances:
+* trilinear_fwd: atol 1e-5 in f32 and in bf16 (rows are widened to f32
+  and weighted in f32 on both sides; only the order of the 8-term sums
+  differs);
+* trilinear_bwd in f32: 1e-5 x the sum of the magnitudes of each cell's
+  terms (the same f32 terms summed in another order, and the kernel's
+  hat-form weights differ from the plain one-hot form by an ulp);
+  in bf16 one bf16 rounding of the sum more (2^-8 of it). Two launches
+  on the same inputs are bitwise equal.
 """
 
 import numpy as np
@@ -71,3 +77,80 @@ def test_trilinear_fwd_rejects_bad_inputs(cuda):
                                 lf[:, ::2].contiguous())
     with pytest.raises(ValueError):
         trilinear.trilinear_fwd(haloed, page_idx.cpu(), lf)
+
+
+def _bwd_inputs(cfg, n, device, seed=0, skew=False):
+    meta = hash_field.paged_meta(cfg)
+    g = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.rand((n, 3), generator=g, device=device) * 4 - 2
+    if skew:     # most points in one coarse cell: long page runs
+        pts[: n // 2] = pts[: n // 2] * 1e-3 + 0.01
+    page_idx, local, frac = hash_paged.page_indices(pts, meta)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    grad = torch.randn((n, cfg.n_levels * cfg.n_channels), generator=g,
+                       device=device)
+    return grad, page_idx, lf, meta.total_pages
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,skew", [(1, False), (1001, False),
+                                    (65537, False), (65537, True)])
+@pytest.mark.parametrize("channels", [2, 4])
+def test_trilinear_bwd_matches_plain(cuda, dtype, n, skew, channels):
+    cfg = ModelConfig(n_levels=8, n_channels=channels, log2_table_size=14)
+    grad, page_idx, lf, n_pages = _bwd_inputs(cfg, n, cuda, skew=skew)
+    before = trilinear.trilinear_bwd.launches
+    out = trilinear.trilinear_bwd(grad, page_idx, lf, n_pages, dtype)
+    torch.cuda.synchronize()
+    assert trilinear.trilinear_bwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n_pages, channels * 128)
+    ref = trilinear.trilinear_bwd_ref(grad, page_idx, lf, n_pages,
+                                      chunk=4096)
+    mag = trilinear.trilinear_bwd_ref(grad.abs(), page_idx, lf, n_pages,
+                                      chunk=4096)
+    tol = 1e-5 * mag + (2.0 ** -8 * ref.abs() if dtype == torch.bfloat16
+                        else 0.0)
+    assert bool(((out.float() - ref).abs() <= tol + 1e-30).all())
+    again = trilinear.trilinear_bwd(grad, page_idx, lf, n_pages, dtype)
+    assert torch.equal(out, again)
+    # and the plain version on the CPU gives the same numbers
+    cpu = trilinear.trilinear_bwd(grad.cpu(), page_idx.cpu(), lf.cpu(),
+                                  n_pages)
+    assert bool(((out.float().cpu() - cpu).abs() <= tol.cpu() + 1e-6).all())
+
+
+def test_trilinear_bwd_rejects_bad_inputs(cuda):
+    cfg = ModelConfig(n_levels=2, n_channels=4, log2_table_size=12)
+    grad, page_idx, lf, n_pages = _bwd_inputs(cfg, 100, cuda)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd(grad.half(), page_idx, lf, n_pages)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd(grad, page_idx.long(), lf, n_pages)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd(grad, page_idx, lf, n_pages, torch.float16)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd(grad[:, ::2], page_idx, lf, n_pages)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd(grad, page_idx.cpu(), lf, n_pages)
+
+
+def test_encode_gradient_on_the_card(cuda):
+    """The whole encode backward (kernel + halo transpose) on the card
+    against the CPU, and deterministic."""
+    cfg = ModelConfig(n_levels=8, n_channels=4, log2_table_size=14)
+    meta = hash_field.paged_meta(cfg)
+    g = torch.Generator().manual_seed(3)
+    pages = torch.rand((meta.total_pages, 4, 4, 4, 4), generator=g) * 2 - 1
+    pts = torch.rand((20000, 3), generator=g) * 4 - 2
+    cot = torch.randn((20000, 32), generator=g)
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        p = pages.to(dev).requires_grad_(True)
+        feat = hash_paged.paged_encode(pts.to(dev), p, meta,
+                                       compute_dtype=torch.float32)
+        (feat * cot.to(dev)).sum().backward()
+        grads.append(p.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    scale = float(grads[2].abs().max())
+    torch.testing.assert_close(grads[0], grads[2], rtol=0,
+                               atol=1e-5 * scale)

@@ -178,3 +178,49 @@ def test_world_camera_frames():
     np.testing.assert_allclose(out_t[0], out_j[0])
     np.testing.assert_allclose(out_t[1], out_j[1])
     assert out_t[2] == out_j[2]
+
+
+def _spread_inputs(seed):
+    """Weights from a real composite (prefix-masked), monotone t."""
+    rng = np.random.default_rng(seed)
+    r, s = 64, 48
+    sec = rng.uniform(0.0, 0.3, (r, s)).astype(np.float32)
+    dt = rng.uniform(0.02, 0.1, (r, s)).astype(np.float32)
+    dt[:, 0] = 0.0
+    dt[::7, -5:] = 0.0                       # invalid tail slots
+    t = np.cumsum(dt, axis=-1).astype(np.float32) + 0.1
+    colors = rng.random((r, s, 3)).astype(np.float32)
+    _, _, w, mask = jcomp.composite(jnp.asarray(sec * (dt > 0)),
+                                    jnp.asarray(colors), jnp.asarray(t),
+                                    jnp.full((r, 3), 0.5), 1e-2)
+    assert 0 < float(jnp.mean(mask)) < 1
+    return np.asarray(w), np.asarray(mask), t, dt
+
+
+def test_weight_variance():
+    w, mask, t, _ = _spread_inputs(1)
+    for pos in (None, t / (1.0 / 64 * 16.0)):
+        ref = np.asarray(jcomp.weight_variance(
+            jnp.asarray(w), jnp.asarray(mask),
+            pos=None if pos is None else jnp.asarray(pos)))
+        out = tcomp.weight_variance(
+            _t(w), _t(mask), pos=None if pos is None else _t(pos))
+        assert out.shape == (w.shape[0],)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=ATOL)
+
+
+def test_distortion_loss():
+    w, mask, t, dt = _spread_inputs(2)
+    ref = np.asarray(jcomp.distortion_loss(jnp.asarray(w), jnp.asarray(t),
+                                           jnp.asarray(dt),
+                                           jnp.asarray(mask), 4.0))
+    out = tcomp.distortion_loss(_t(w), _t(t), _t(dt), _t(mask), 4.0)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=ATOL)
+    # and its gradient in the weights (the train step differentiates it)
+    wt = _t(w).requires_grad_(True)
+    tcomp.distortion_loss(wt, _t(t), _t(dt), _t(mask), 4.0).sum().backward()
+    gj = jax.grad(lambda x: jnp.sum(jcomp.distortion_loss(
+        x, jnp.asarray(t), jnp.asarray(dt), jnp.asarray(mask), 4.0)))(
+            jnp.asarray(w))
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gj), rtol=1e-5,
+                               atol=ATOL)

@@ -4,7 +4,9 @@ with the JAX params converted by f2nerf_tpu_torch.convert.
 
 Tolerances: field features and colors atol 1e-5 (f32 encode sums and
 small matmuls in another order); the samplers' discrete outputs exactly;
-sample positions atol 1e-6.
+sample positions atol 1e-6; the refreshed occupancy grid rtol 1e-5
+(densities of the same params). TRAIN mode gets the JAX package's own
+draws, rebuilt from its keys.
 """
 
 import dataclasses
@@ -183,9 +185,11 @@ def test_occ_sampler_validate(occ):
         np.testing.assert_allclose(getattr(out, name).numpy(),
                                    np.asarray(getattr(ref, name)),
                                    atol=1e-6, err_msg=name)
-    with pytest.raises(NotImplementedError):
+    # TRAIN needs both jitter draws
+    with pytest.raises(ValueError):
         tocc.sample_rays_occ(torch.from_numpy(o), torch.from_numpy(d),
-                             occ["tvals"], occ["tcfg"].model, key=1)
+                             occ["tvals"], occ["tcfg"].model,
+                             rank_u=torch.rand(512, cfg.occ_keep))
 
 
 @pytest.mark.parametrize("which", ["dense", "occ"])
@@ -246,3 +250,163 @@ def test_density_at(dense):
     out = trend.density_at(dense["tp"], torch.from_numpy(pts),
                            dense["tcfg"].model, contracted=True)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5)
+
+
+def _cut_vals(s, seed):
+    """Occupancy values whose mean channel is opaque (sigma 2e3) in the
+    occupied cells: rays crossing 3+ occupied segments get ineligible
+    ones, the targets of the explore slots."""
+    cfg = s["jcfg"].model
+    g = cfg.occ_grid_res
+    occ = (np.random.default_rng(seed).random((g, g, g)) < 0.25).astype(
+        np.float32)
+    grid = np.stack([occ * 2 * jocc.sigma_threshold(cfg), occ * 2e3])
+    return (jocc.occ_values(jnp.asarray(grid), cfg),
+            tocc.occ_values(torch.from_numpy(grid), s["tcfg"].model))
+
+
+def _occ_draws(key, cfg, r):
+    """sample_rays_occ's TRAIN draws (occupancy.py:239-271, 316-319)."""
+    explore = None
+    if cfg.occ_explore_eps > 0.0:
+        key, k_exp = jax.random.split(key)
+        explore = torch.tensor(np.asarray(jax.random.bernoulli(
+            k_exp, cfg.occ_explore_eps, (r, 1))))
+    k_rank, k_within = jax.random.split(key)
+    rank = jax.random.uniform(k_rank, (r, cfg.occ_keep))
+    within = jax.random.uniform(k_within, (r, cfg.occ_keep,
+                                           cfg.occ_samples_per_segment))
+    return dict(rank_u=torch.tensor(np.asarray(rank)),
+                within_u=torch.tensor(np.asarray(within)), explore=explore)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.5])
+def test_occ_sampler_train(occ, eps):
+    """TRAIN: jittered ranks and samples, the targeted explore slot, and
+    (eps > 0) exploration rays."""
+    jcfg = dataclasses.replace(occ["jcfg"].model, occ_explore_eps=eps)
+    tcfg = dataclasses.replace(occ["tcfg"].model, occ_explore_eps=eps)
+    assert jcfg.occ_explore_slots == 1 and jcfg.occ_explore_targeted
+    jvals, tvals = _cut_vals(occ, 3)
+    o, d = _rays(512, 9)
+    key = jax.random.key(11)
+    ref = jocc.sample_rays_occ(jnp.asarray(o), jnp.asarray(d), jvals, jcfg,
+                               key)
+    out = tocc.sample_rays_occ(torch.from_numpy(o), torch.from_numpy(d),
+                               tvals, tcfg, **_occ_draws(key, jcfg, 512))
+    np.testing.assert_array_equal(out.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(out.explore.numpy(),
+                                  np.asarray(ref.explore))
+    for name in ("t", "dt", "pts", "dirs"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   atol=1e-6, err_msg=name)
+    # the fixture reaches the branches: ineligible segments are sampled
+    # (by the explore slot) and the jitter moved samples off the centres
+    assert 0 < float(out.explore.float().mean()) < 0.5
+    val = tocc.sample_rays_occ(torch.from_numpy(o), torch.from_numpy(d),
+                               tvals, tcfg)
+    assert not torch.equal(val.t, out.t)
+    if eps == 0.0:
+        # without the explore slot VALIDATE never samples them
+        assert not bool(val.explore.any())
+
+
+def test_update_grid_two_phases(occ):
+    """Two K=4 refresh phases in a row, the JAX jitter injected."""
+    jcfg, tcfg = occ["jcfg"].model, occ["tcfg"].model
+    assert jcfg.occ_refresh_phases == 4
+    g = jcfg.occ_grid_res
+    rng = np.random.default_rng(12)
+    grid = np.stack([rng.uniform(0, 1, (g, g, g)),
+                     rng.uniform(0, 1, (g, g, g))]).astype(np.float32)
+    jgrid, tgrid = jnp.asarray(grid), torch.from_numpy(grid)
+    m = g ** 3 // 4
+    for phase in (0, 1):
+        key = jax.random.key(20 + phase)
+        jgrid = jocc.update_grid(
+            jgrid, lambda x: jrend.density_at(occ["jp"], occ["jc"], x, jcfg,
+                                              contracted=True),
+            key, jcfg, phase=phase)
+        u = torch.tensor(np.asarray(jax.random.uniform(key, (m, 3))))
+        with torch.no_grad():
+            tgrid = tocc.update_grid(
+                tgrid, lambda x: trend.density_at(occ["tp"], x, tcfg,
+                                                  contracted=True),
+                tcfg, phase=phase, u=u)
+        np.testing.assert_allclose(tgrid.numpy(), np.asarray(jgrid),
+                                   rtol=1e-5, atol=1e-7)
+    # each phase touched its quarter of the mean channel, not the rest
+    changed = (tgrid[1] != torch.from_numpy(grid[1])).reshape(m, 4)
+    assert bool(changed[:, :2].all()) and not bool(changed[:, 2:].any())
+    # and the single-channel legacy grid keeps its shape
+    one = tocc.update_grid(torch.from_numpy(grid[0]), lambda x: x[:, 0],
+                           tcfg, phase=3, u=u)
+    assert one.shape == (g, g, g)
+
+
+class _Noise:
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+@pytest.mark.parametrize("which", ["dense", "occ"])
+def test_render_train(which, request):
+    """TRAIN mode: random background, jittered samplers, app_emb."""
+    s = request.getfixturevalue(which)
+    jcfg = s["jcfg"].model
+    o, d = _rays(256, 13)
+    emb_idx = np.random.default_rng(14).integers(0, 4, 256).astype(np.int32)
+    key = jax.random.key(15)
+    if which == "occ":
+        jvals, tvals = _cut_vals(s, 16)
+    else:
+        jvals = tvals = None
+    ref = jax.jit(lambda p, c, o_, d_, e, b: jrend.render(
+        p, c, o_, d_, e, jcfg, key, train=True, occ_bits=b))(
+            s["jp"], s["jc"], jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(emb_idx), jvals)
+    key_noise, key_bg = jax.random.split(key)
+    bg = torch.tensor(np.asarray(jax.random.uniform(key_bg, (256, 3))))
+    if which == "occ":
+        draws = _occ_draws(key_noise, jcfg, 256)
+        noise = _Noise(bg=bg, march=None, rank=draws["rank_u"],
+                       within=draws["within_u"], explore=draws["explore"])
+    else:
+        noise = _Noise(bg=bg, march=torch.tensor(np.asarray(
+            jax.random.uniform(key_noise, (256, jcfg.n_samples)))),
+            rank=None, within=None, explore=None)
+    out = trend.render(s["tp"], torch.from_numpy(o), torch.from_numpy(d),
+                       s["tcfg"].model, occ_vals=tvals,
+                       emb_idx=torch.from_numpy(emb_idx), noise=noise)
+    np.testing.assert_array_equal(out.mask.numpy(), np.asarray(ref.mask))
+    for name in ("colors", "depths"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   atol=ATOL, rtol=1e-5, err_msg=name)
+    for name in ("weights", "sec_density"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   atol=1e-4, rtol=1e-3, err_msg=name)
+    # the embedding and the background reach the colors
+    plain = trend.render(s["tp"], torch.from_numpy(o), torch.from_numpy(d),
+                         s["tcfg"].model, occ_vals=tvals, noise=noise)
+    assert float((plain.colors - out.colors).abs().max()) > 1e-4
+
+
+def test_cached_haloed_refused_when_training(dense):
+    """A cached haloed table would give feat_pool a zero gradient: a
+    query that differentiates feat_pool refuses it."""
+    cfg = dense["tcfg"].model
+    p = {"feat_pool": dense["tp"]["field"]["feat_pool"].clone(),
+         "mlp": dense["tp"]["field"]["mlp"]}
+    cached = dict(p, haloed=thf.haloed_table(p, cfg))
+    p["feat_pool"].requires_grad_(True)
+    pts = torch.rand(50, 3) * 4 - 2
+    with pytest.raises(ValueError, match="haloed"):
+        thf.query(cached, pts, cfg)
+    with torch.no_grad():        # no gradient asked: the cache is fine
+        torch.testing.assert_close(thf.query(cached, pts, cfg),
+                                   thf.query(p, pts, cfg), rtol=0, atol=0)
+    thf.query(p, pts, cfg)[:, 0].sum().backward()
+    assert float(p["feat_pool"].grad.abs().max()) > 0
