@@ -1,7 +1,8 @@
 """Paged hash-grid trilinear contraction: the CUDA kernels
-``trilinear_fwd`` (``csrc/trilinear_fwd.cu``) and ``trilinear_bwd``
-(``csrc/trilinear_bwd.cu``), their plain PyTorch versions and their
-wrappers.
+``trilinear_fwd`` (``csrc/trilinear_fwd.cu``), ``trilinear_bwd``
+(``csrc/trilinear_bwd.cu``) and ``trilinear_bwd_frac``
+(``csrc/trilinear_bwd_frac.cu``), their plain PyTorch versions and their
+wrappers. Together they port every TPU kernel of the JAX package.
 
 * ``trilinear_fwd`` ports the TPU kernel ``contract_fwd`` /
   ``_fwd_kernel`` (``f2nerf_tpu/kernels/trilinear.py:72-87, 146-169``).
@@ -13,6 +14,12 @@ wrappers.
   that reduced its rows into pages (``f2nerf_tpu/ops/hash_paged.py``
   ``_encode_core_bwd``): it writes the page gradient directly, in a
   fixed order, so it is deterministic without float atomics.
+* ``trilinear_bwd_frac`` ports ``contract_bwd_frac`` / ``_bwd_frac_kernel``
+  (``:103-117, 198-224``), the point gradient of the localizer's pose
+  refinement. Like ``trilinear_fwd`` it gathers its own 8 corners, where
+  XLA re-gathered the [N, C*128] rows for the TPU kernel; at f == 0 it
+  gives the JAX jnp branch's one-sided derivative (the Pallas hat form
+  gives 0 there).
 
 Each wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises.
@@ -81,15 +88,7 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
     _check(haloed, page_idx, local_frac)
     if haloed.device.type == "cpu":
         return trilinear_fwd_ref(haloed, page_idx, local_frac, chunk)
-    if haloed.device.type != "cuda":
-        raise ValueError(f"trilinear_fwd runs on cuda or cpu, not "
-                         f"{haloed.device}")
-    c = haloed.shape[1] // ROW_PAD
-    if c not in _SUPPORTED_CHANNELS:
-        raise ValueError(f"trilinear_fwd supports C in "
-                         f"{_SUPPORTED_CHANNELS}, got {c}")
-    if haloed.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"haloed must be bf16 or f32, got {haloed.dtype}")
+    c = _check_table("trilinear_fwd", haloed)
     _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac)
     from f2nerf_tpu_torch.kernels.build import load_library
 
@@ -113,6 +112,21 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
                            f"error {rc}")
     trilinear_fwd.launches += 1
     return feat
+
+
+def _check_table(kernel: str, haloed: torch.Tensor) -> int:
+    """A table the CUDA kernels take: on cuda, bf16 or f32, C in
+    ``_SUPPORTED_CHANNELS``; returns C."""
+    if haloed.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, not "
+                         f"{haloed.device}")
+    c = haloed.shape[1] // ROW_PAD
+    if c not in _SUPPORTED_CHANNELS:
+        raise ValueError(f"{kernel} supports C in {_SUPPORTED_CHANNELS}, "
+                         f"got {c}")
+    if haloed.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"haloed must be bf16 or f32, got {haloed.dtype}")
+    return c
 
 
 def _check_cuda(**tensors):
@@ -226,7 +240,103 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
     return d_haloed
 
 
+def trilinear_bwd_frac_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
+                           local_frac: torch.Tensor, g: torch.Tensor,
+                           chunk: int = 20480,
+                           magnitudes: bool = False) -> torch.Tensor:
+    """Plain version: per level and chunk of ``chunk`` points, gather the
+    rows, form d_w = sum_c g_c * rows_c in f32 and take the one-hot
+    derivative of the weight row (``_dfrac_level``'s jnp branch,
+    ``f2nerf_tpu/ops/hash_paged.py:405-416``, with g kept in f32 as the
+    Pallas kernel keeps it).
+
+    ``magnitudes=True`` returns instead the sum of the magnitudes of
+    each output's terms (|g|, |rows| and |dw|), the scale against which
+    the kernel's rounding is judged.
+    """
+    from f2nerf_tpu_torch.ops.hash_paged import PAGE_CELLS, axis_weights
+
+    n_levels, n = page_idx.shape
+    c = haloed.shape[1] // ROW_PAD
+    chunk = max(int(chunk), 1)
+    out = torch.zeros((n_levels, n, 6), dtype=torch.float32,
+                      device=haloed.device)
+    for lvl in range(n_levels):
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            rows = haloed.index_select(0, page_idx[lvl, s:e].long()).float()
+            g_l = g[s:e, lvl * c:(lvl + 1) * c].float()
+            lf = local_frac[lvl, s:e]
+            w, dw = axis_weights(lf[:, 0:3].to(torch.int32), lf[:, 3:6])
+            if magnitudes:
+                rows, g_l, dw = rows.abs(), g_l.abs(), dw.abs()
+            d_w = (g_l[:, :, None] * rows.view(e - s, c, ROW_PAD)).sum(1)
+            d_w = d_w[:, :PAGE_CELLS].reshape(e - s, 5, 5, 5)
+            wx, wy, wz = w.unbind(1)
+            dwx, dwy, dwz = dw.unbind(1)
+            out[lvl, s:e, 3] = torch.einsum("nxyz,nx,ny,nz->n", d_w, dwx,
+                                            wy, wz)
+            out[lvl, s:e, 4] = torch.einsum("nxyz,nx,ny,nz->n", d_w, wx,
+                                            dwy, wz)
+            out[lvl, s:e, 5] = torch.einsum("nxyz,nx,ny,nz->n", d_w, wx,
+                                            wy, dwz)
+    return out
+
+
+def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
+                       local_frac: torch.Tensor, g: torch.Tensor,
+                       chunk: int = 20480) -> torch.Tensor:
+    """d_local_frac [L, N, 6] f32, the gradient of ``trilinear_fwd``'s
+    output with respect to its local_frac: zeros in the three ``local``
+    columns (integer coords, as the JAX backward returns them) and
+    d_frac in the last three. Takes the same haloed [P, C*128] (bf16 or
+    f32), page_idx [L, N] int32 and local_frac [L, N, 6] f32 as
+    ``trilinear_fwd`` and the cotangent g [N, L*C] f32 of its output.
+
+    On the card: one launch of ``csrc/trilinear_bwd_frac.cu``; each
+    output is written by one thread, so two calls on the same inputs
+    give bitwise-equal results. ``chunk`` bounds memory of the plain
+    version only.
+    """
+    _check(haloed, page_idx, local_frac)
+    n_levels, n = page_idx.shape
+    c = haloed.shape[1] // ROW_PAD
+    if tuple(g.shape) != (n, n_levels * c):
+        raise ValueError(f"g must be [N, L*C] = [{n}, {n_levels * c}], got "
+                         f"{tuple(g.shape)}")
+    if haloed.device.type == "cpu":
+        return trilinear_bwd_frac_ref(haloed, page_idx, local_frac, g, chunk)
+    _check_table("trilinear_bwd_frac", haloed)
+    if g.dtype != torch.float32:
+        raise ValueError(f"g must be float32, got {g.dtype}")
+    _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac,
+                g=g)
+    from f2nerf_tpu_torch.kernels.build import load_library
+
+    lib = load_library("trilinear_bwd_frac")
+    fn = lib.trilinear_bwd_frac
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d_local_frac = torch.empty((n_levels, n, 6), dtype=torch.float32,
+                               device=haloed.device)
+    with torch.cuda.device(haloed.device):
+        stream = torch.cuda.current_stream(haloed.device).cuda_stream
+        rc = fn(haloed.data_ptr(), int(haloed.dtype == torch.bfloat16),
+                page_idx.data_ptr(), local_frac.data_ptr(), g.data_ptr(),
+                d_local_frac.data_ptr(), n, n_levels, c, haloed.shape[0],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"trilinear_bwd_frac kernel launch failed: CUDA "
+                           f"error {rc}")
+    trilinear_bwd_frac.launches += 1
+    return d_local_frac
+
+
 # launches of each CUDA kernel in this process (the plain versions on
 # the CPU do not count)
 trilinear_fwd.launches = 0
 trilinear_bwd.launches = 0
+trilinear_bwd_frac.launches = 0

@@ -1,19 +1,25 @@
 """NeRF-based camera pose localization (port of
-``f2nerf_tpu/localize/localizer.py``, particle search).
+``f2nerf_tpu/localize/localizer.py``).
 
-Reference ``src/localizer.{hpp,cpp}``: N noisy poses around the prior,
-one batched render of ``render_pixel_num`` random pixels per pose,
-particle weights ``(pixel_num / loss)^5`` normalized (computed in log
-space), fused by weighted position + sign-aligned unweighted quaternion
-averaging.
+Reference ``src/localizer.{hpp,cpp}``, two modes:
 
-The particle noise and the pixel choice are drawn on the host from a
-numpy ``Generator``, as in the JAX package, so the same ``seed`` gives
-the same particles and pixels in both.
+* **particle search** (``optimize_pose_by_random_search``): N noisy
+  poses around the prior, one batched render of ``render_pixel_num``
+  random pixels per pose, particle weights ``(pixel_num / loss)^5``
+  normalized (computed in log space), fused by weighted position +
+  sign-aligned unweighted quaternion averaging. The particle noise and
+  the pixel choice are drawn on the host from a numpy ``Generator``, as
+  in the JAX package, so the same ``seed`` gives the same particles and
+  pixels in both.
+* **differentiable inverse rendering** (``optimize_pose_by_differential``,
+  and the staged ``localize`` that refines a particle search with it):
+  ``torch.optim.Adam`` directly on the 3x4 pose through one VALIDATE
+  render of the whole frame. The pose gradient reaches the points
+  through the encode's point gradient, the CUDA kernel
+  ``trilinear_bwd_frac``; the field is frozen (its tensors are detached),
+  so no page gradient is computed.
 
-The differential modes (``optimize_pose_by_differential``,
-``localize``) need pose gradients through the encode, i.e. the
-``contract_bwd_frac`` kernel, and are not ported yet.
+The multi-device ``mesh`` of the JAX localizer is not ported.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from f2nerf_tpu_torch.core.cameras import (camera2world, rays_from_pose,
-                                           world2camera)
+from f2nerf_tpu_torch.core.cameras import (camera2world, pixel_grid,
+                                           rays_from_pose, world2camera)
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.models import hash_field, renderer
@@ -127,8 +133,10 @@ def calc_average_pose(particles: list[Particle]) -> np.ndarray:
 
 
 def _to_device(tree: dict[str, Any], device: torch.device) -> dict[str, Any]:
+    """The params on ``device``, detached: the localizer never trains
+    the field."""
     return {k: _to_device(v, device) if isinstance(v, dict)
-            else v.to(device) for k, v in tree.items()}
+            else v.detach().to(device) for k, v in tree.items()}
 
 
 class Localizer:
@@ -286,15 +294,128 @@ class Localizer:
         return [Particle(pose=poses[i], weight=float(weights[i]))
                 for i in range(len(poses))]
 
-    def optimize_pose_by_differential(self, *args, **kwargs):
-        raise NotImplementedError(
-            "differential localization is not yet ported: it needs the "
-            "contract_bwd_frac kernel")
+    # -- differentiable mode ----------------------------------------------
+    def _frame(self, image: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """The full pixel grid [H*W, 2] and the image [H*W, 3], on the
+        device, for the differential loss."""
+        h, w = self.infer_height, self.infer_width
+        ij = torch.as_tensor(pixel_grid(h, w), device=self.device)
+        gt = torch.tensor(
+            np.asarray(image, dtype=np.float32).reshape(h * w, 3),
+            device=self.device)
+        return ij, gt
 
-    def localize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "staged localization is not yet ported: its refinement needs "
-            "the contract_bwd_frac kernel")
+    def _pose_loss_backward(self, pose: torch.Tensor, ij: torch.Tensor,
+                            gt: torch.Tensor) -> float:
+        """sum((colors - gt)^2) / (n * 3) over the whole frame in one
+        VALIDATE render, unclamped colors (JAX ``_diff_step``'s
+        ``loss_fn``), with its gradient accumulated into the [3, 4] leaf
+        ``pose``; returns the loss."""
+        with torch.enable_grad():
+            rays_o, rays_d = rays_from_pose(pose[None], self.intrinsic[None],
+                                            ij)
+            res = renderer.render(self.params, rays_o, rays_d,
+                                  self.cfg.model, occ_vals=self.occ_vals)
+            loss = torch.sum((res.colors - gt) ** 2) / (ij.shape[0] * 3)
+            loss.backward()
+        return float(loss.detach())
+
+    def _diff_step_auto(self, pose: torch.Tensor, opt: torch.optim.Adam,
+                        ij: torch.Tensor, gt: torch.Tensor) -> float:
+        """One Adam step of the [3, 4] leaf ``pose`` in place, at the lr
+        of ``opt``'s param group; returns the loss at the input pose.
+        Both differential modes take it: the lr lives in the param group,
+        so the backtracking loop halves it without a new step."""
+        opt.zero_grad(set_to_none=True)
+        loss = self._pose_loss_backward(pose, ij, gt)
+        opt.step()
+        return loss
+
+    def pose_gradient(self, pose: np.ndarray, image: np.ndarray
+                      ) -> tuple[float, np.ndarray]:
+        """The differential loss at ``pose`` and its gradient [3, 4]: what
+        a step of the differential modes descends."""
+        leaf = torch.tensor(np.asarray(pose, dtype=np.float32),
+                            device=self.device, requires_grad=True)
+        loss = self._pose_loss_backward(leaf, *self._frame(image))
+        return loss, leaf.grad.cpu().numpy()
+
+    def _adam(self, pose: torch.Tensor, lr: float) -> torch.optim.Adam:
+        """optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8) on ``pose``, fresh
+        moments."""
+        return torch.optim.Adam([pose], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def optimize_pose_by_differential(
+            self, initial_pose: np.ndarray, image: np.ndarray,
+            iteration_num: int, lr: float = 1e-4) -> list[np.ndarray]:
+        """src/localizer.cpp:142-167: Adam on the 3x4 pose through the
+        renderer; reported poses keep the original rotation rows."""
+        ij, gt = self._frame(image)
+        prev_rot = np.asarray(initial_pose)[:3, :3].copy()
+        pose = torch.tensor(np.asarray(initial_pose, dtype=np.float32),
+                            device=self.device, requires_grad=True)
+        opt = self._adam(pose, lr)
+        results = []
+        for _ in range(iteration_num):
+            self._diff_step_auto(pose, opt, ij, gt)
+            out = pose.detach().cpu().numpy().copy()
+            out[:3, :3] = prev_rot
+            results.append(out)
+        return results
+
+    def localize(self, initial_pose: np.ndarray, image: np.ndarray,
+                 particle_num: int = 128, search_rounds: int = 3,
+                 noise_coeff: float = 2.0, diff_iters: int = 30,
+                 diff_lr: float = 3e-3, min_lr: float = 1e-5,
+                 auto_lr: bool = True) -> dict:
+        """Staged localization: shrinking-rounds particle search (round r
+        searches with noise_coeff / 2^r), then a safeguarded differential
+        refinement: a step whose loss rises above the best reverts to the
+        best pose, halves the lr and restarts Adam's moments.
+
+        Returns dict(pose, search_pose, loss, lr_final, backtracks,
+        loss_history). The reported pose keeps the search's rotation with
+        the refined translation.
+        """
+        pose = np.asarray(initial_pose, dtype=np.float32)
+        for r in range(search_rounds):
+            parts = self.optimize_pose_by_random_search(
+                pose, image, particle_num=particle_num,
+                noise_coeff=noise_coeff / (2.0 ** r))
+            pose = calc_average_pose(parts)
+        search_pose = pose.copy()
+
+        ij, gt = self._frame(image)
+        lr = float(diff_lr)
+        cur = torch.tensor(pose, device=self.device, requires_grad=True)
+        opt = self._adam(cur, lr)
+        best = cur.detach().clone()
+        best_loss = float("inf")
+        backtracks = 0
+        history = []
+        it = 0
+        while it < diff_iters and lr >= min_lr:
+            before = cur.detach().clone()
+            loss = self._diff_step_auto(cur, opt, ij, gt)
+            history.append(loss)
+            if auto_lr and loss > best_loss * (1.0 + 1e-6):
+                # the previous step hurt: revert to the best pose, halve
+                # the rate, reset the Adam moments
+                lr *= 0.5
+                backtracks += 1
+                with torch.no_grad():
+                    cur.copy_(best)
+                opt = self._adam(cur, lr)
+                continue
+            if loss <= best_loss:
+                best, best_loss = before, loss
+            it += 1
+
+        out = best.cpu().numpy().copy()
+        out[:3, :3] = search_pose[:3, :3]
+        return {"pose": out, "search_pose": search_pose,
+                "loss": best_loss, "lr_final": lr,
+                "backtracks": backtracks, "loss_history": history}
 
     # -- frame conversion --------------------------------------------------
     def world2camera(self, pose_in_world: np.ndarray) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Anchored hash-grid scene field (port of
 ``f2nerf_tpu/models/hash_field.py``, paged mode). Differentiable in
-``feat_pool`` and the head.
+``feat_pool`` and the head (training) and in the query points (the
+localizer's pose gradient).
 
 Contraction -> paged hash encode -> Linear(L*C -> 16) head. Parameters
 are a plain dict with the JAX package's layout

@@ -1,6 +1,6 @@
 """Paged multi-level hash-grid encoding (port of
-``f2nerf_tpu/ops/hash_paged.py``; the page gradient, not yet the point
-gradient).
+``f2nerf_tpu/ops/hash_paged.py``, with both gradients: the page
+gradient for training and the point gradient for pose refinement).
 
 The layout is the JAX package's, unchanged, so converted parameters and
 page indices agree exactly:
@@ -18,13 +18,15 @@ page indices agree exactly:
 The encode is :class:`_EncodeCore`, the counterpart of the JAX
 ``_encode_core`` custom VJP: its forward is one call of the
 ``trilinear_fwd`` kernel (kernels/trilinear.py), which fuses the
-per-level row gather with the trilinear contraction; its backward is one
-call of ``trilinear_bwd``, which writes the gradient of the haloed table
-with the page reduction fused in (deterministic, no float atomics). The
-transpose of the halo (``halo_pages``' rolls and concatenations) is left
-to autograd, as the JAX package leaves it to XLA. The point gradient
-(``contract_bwd_frac``, localizer modes 1/2) is not ported yet: asking
-for it raises.
+per-level row gather with the trilinear contraction. Its backward calls
+``trilinear_bwd`` when the table needs a gradient (training), which
+writes the gradient of the haloed table with the page reduction fused in
+(deterministic, no float atomics), and ``trilinear_bwd_frac`` when the
+points do (localizer modes 1/2), which writes the gradient of the
+trilinear fractions; a frozen table pays for no page gradient. The
+transpose of the halo (``halo_pages``' rolls and concatenations) and the
+path from points to fractions (:func:`page_indices`) are left to
+autograd, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from f2nerf_tpu_torch.kernels.trilinear import (ROW_PAD, trilinear_bwd,
+                                                trilinear_bwd_frac,
                                                 trilinear_fwd)
 
 BLOCK = 4            # cells per page axis
@@ -156,13 +159,15 @@ def page_indices(points: torch.Tensor, meta: PagedMeta
     which gives the same residues.
 
     Returns (page_idx [L, N] int32, local [L, N, 3] int32 in [0, BLOCK),
-    frac [L, N, 3] float32).
+    frac [L, N, 3] float32). ``frac`` is differentiable in ``points``
+    (d frac / d points = the level's scale; floor's gradient is zero,
+    as in JAX).
     """
     dev = points.device
     scales = torch.as_tensor(meta.scales, device=dev)
     biases = torch.as_tensor(meta.biases, device=dev)
     pt = points[None, :, :] * scales[:, None, None] + biases[:, None, :]
-    f = torch.floor(pt)
+    f = torch.floor(pt.detach())
     frac = (pt - f).float()
     ip = f.to(torch.int32)                               # cell coords
     blk = (ip >> 2).to(torch.int64) & _U32               # as uint32
@@ -180,25 +185,32 @@ def page_indices(points: torch.Tensor, meta: PagedMeta
     return (page + offs).to(torch.int32), local, frac
 
 
+def axis_weights(local: torch.Tensor, frac: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-axis trilinear weights of the 5 haloed slots and their
+    derivative in the fraction.
+
+    local/frac: [..., 3] -> (w, dw), each [..., 3, 5] f32, with
+    w_ax = (1-f)*[s==l] + f*[s==l+1] and dw_ax = [s==l+1] - [s==l]
+    (the one-hot form: at f == 0 the derivative is still -1 / +1).
+    """
+    s5 = torch.arange(HALO, dtype=torch.int32, device=local.device)
+    at_l = s5 == local[..., None]
+    at_next = s5 == local[..., None] + 1
+    fr = frac.float()[..., None]
+    zero = torch.zeros((), dtype=torch.float32, device=fr.device)
+    w = torch.where(at_l, 1.0 - fr, zero) + torch.where(at_next, fr, zero)
+    return w, at_next.float() - at_l.float()
+
+
 def weight_row(local: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     """Trilinear weights as a lane-padded f32 row.
 
     local/frac: [..., 3] -> [..., 128] where slot s = x*25 + y*5 + z of
-    the haloed page gets w = wx[x]*wy[y]*wz[z], with
-    w_ax = (1-f)*[s==l] + f*[s==l+1] per axis.
+    the haloed page gets w = wx[x]*wy[y]*wz[z] (see :func:`axis_weights`).
     """
-    s5 = torch.arange(HALO, dtype=torch.int32, device=local.device)
-
-    def axis_w(l_ax, f_ax):
-        loc = l_ax[..., None]
-        fr = f_ax[..., None]
-        zero = torch.zeros((), dtype=torch.float32, device=fr.device)
-        return (torch.where(s5 == loc, 1.0 - fr, zero)
-                + torch.where(s5 == loc + 1, fr, zero))   # [..., 5]
-
-    wx = axis_w(local[..., 0], frac[..., 0].float())
-    wy = axis_w(local[..., 1], frac[..., 1].float())
-    wz = axis_w(local[..., 2], frac[..., 2].float())
+    w3, _ = axis_weights(local, frac)
+    wx, wy, wz = w3[..., 0, :], w3[..., 1, :], w3[..., 2, :]
     w = (wx[..., :, None, None] * wy[..., None, :, None]
          * wz[..., None, None, :])                        # [..., 5, 5, 5]
     w = w.reshape(*w.shape[:-3], PAGE_CELLS)
@@ -207,12 +219,19 @@ def weight_row(local: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
 
 class _EncodeCore(torch.autograd.Function):
     """feat [N, L*C] f32 from haloed [P, C*128], page_idx [L, N] and
-    local_frac [L, N, 6]; differentiable in ``haloed`` (JAX
-    ``_encode_core``, ``f2nerf_tpu/ops/hash_paged.py:419-528``)."""
+    local_frac [L, N, 6]; differentiable in ``haloed`` (the page
+    gradient) and in ``local_frac`` (the point gradient, whose ``local``
+    columns get zeros), either or both (JAX ``_encode_core``,
+    ``f2nerf_tpu/ops/hash_paged.py:419-528``)."""
 
     @staticmethod
     def forward(ctx, haloed, page_idx, local_frac, chunk):
-        ctx.save_for_backward(page_idx, local_frac)
+        # the table is kept only for the point gradient: the page
+        # gradient does not read it
+        if ctx.needs_input_grad[2]:
+            ctx.save_for_backward(page_idx, local_frac, haloed)
+        else:
+            ctx.save_for_backward(page_idx, local_frac)
         ctx.n_pages = haloed.shape[0]
         ctx.dtype = haloed.dtype
         ctx.chunk = chunk
@@ -220,19 +239,17 @@ class _EncodeCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.needs_input_grad[2]:
-            raise NotImplementedError(
-                "the point gradient of the paged encode (the TPU kernel "
-                "contract_bwd_frac, localizer modes 1/2) is not ported "
-                "yet; it belongs to the next slice of the port")
-        page_idx, local_frac = ctx.saved_tensors
-        d_haloed = None
+        page_idx, local_frac, *haloed = ctx.saved_tensors
+        g = g.float().contiguous()
+        d_haloed = d_local_frac = None
         if ctx.needs_input_grad[0]:
             # in haloed's dtype, as the JAX backward returns it
-            d_haloed = trilinear_bwd(g.float().contiguous(), page_idx,
-                                     local_frac, ctx.n_pages, ctx.dtype,
-                                     chunk=ctx.chunk)
-        return d_haloed, None, None, None
+            d_haloed = trilinear_bwd(g, page_idx, local_frac, ctx.n_pages,
+                                     ctx.dtype, chunk=ctx.chunk)
+        if ctx.needs_input_grad[2]:
+            d_local_frac = trilinear_bwd_frac(haloed[0], page_idx,
+                                              local_frac, g, chunk=ctx.chunk)
+        return d_haloed, None, d_local_frac, None
 
 
 def paged_encode(points: torch.Tensor, pages: torch.Tensor,
@@ -240,7 +257,7 @@ def paged_encode(points: torch.Tensor, pages: torch.Tensor,
                  chunk: int = 65536,
                  haloed: torch.Tensor | None = None) -> torch.Tensor:
     """Encode points against the paged hash grid; differentiable in
-    ``pages`` (and in ``haloed`` when it is given).
+    ``pages`` (and in ``haloed`` when it is given) and in ``points``.
 
     Args:
       points: [N, 3] contracted points.

@@ -17,7 +17,17 @@ Tolerances:
   plus a ``segment_sum``: the kernel rounds every g*w term to bf16
   (2^-8 of each term) and the port rounds once, after an f32 sum (2^-8
   of the sum), so each cell may differ by 2^-7 x the sum of its terms'
-  magnitudes (computed from |g|; measured up to 0.0071 x).
+  magnitudes (computed from |g|; measured up to 0.0071 x);
+* fp32 point gradient (``trilinear_bwd_frac``'s plain version, the
+  frac path of ``page_indices`` and the sum over levels) against
+  ``jax.grad`` of the jnp branch: atol 1e-5 x the largest |grad| (the
+  finest scale, 1024 here at most, multiplies each level's f32 sums);
+* bf16 d_frac against ``contract_bwd_frac`` in interpret mode: 1e-5 x
+  the sum of each output's term magnitudes (rows widened to f32 and g
+  kept in f32 on both sides; only the order of the f32 sums differs).
+  Fixtures keep away from frac == 0, where the Pallas hat derivative is
+  0 and the port, like the jnp branch, is one-sided; that edge has its
+  own test.
 """
 
 import dataclasses
@@ -287,17 +297,147 @@ def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
     assert np.all(err <= 2.0 ** -7 * np.asarray(mag_pages) + 1e-30)
 
 
-def test_point_gradient_raises():
-    """The point-gradient path is the next slice's: asking for it raises
-    (it never returns zeros)."""
-    _, tm = _metas("tiny")
-    pages, pts, _ = _grad_inputs(tm, 100, 22)
+def _point_grad(pts, pages, meta, g, dtype, chunk=65536, pages_grad=False):
+    """The port's gradient of sum(encode * g) in the points (and in the
+    pages when ``pages_grad``)."""
     x = torch.from_numpy(pts).requires_grad_(True)
-    feat = thp.paged_encode(x, torch.from_numpy(pages), tm,
+    tp = torch.from_numpy(pages).requires_grad_(pages_grad)
+    feat = thp.paged_encode(x, tp, meta, compute_dtype=dtype, chunk=chunk)
+    (feat * torch.from_numpy(g)).sum().backward()
+    return x.grad, tp.grad
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_point_gradient_fp32(name):
+    """Through ``_EncodeCore`` and ``page_indices`` against ``jax.grad``
+    of the JAX encode (jnp branch, point_grads=True)."""
+    jm, tm = _metas(name)
+    pages, pts, _ = _grad_inputs(jm, 3000, 22)
+    pts = _away_from_edges(pts, jm)
+    g = np.random.default_rng(122).normal(
+        size=(len(pts), jm.n_levels * jm.n_channels)).astype(np.float32)
+    ref = np.asarray(jax.grad(lambda x: jnp.sum(jhp.paged_encode(
+        x, jnp.asarray(pages), jm, compute_dtype=jnp.float32,
+        use_pallas=False, point_grads=True) * g))(jnp.asarray(pts)))
+    out, _ = _point_grad(pts, pages, tm, g, torch.float32, chunk=1000)
+    scale = float(np.abs(ref).max())
+    assert out.shape == pts.shape and scale > 1.0
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_point_gradient_bf16_vs_pallas(name, pallas_interpret):
+    """The bf16 d_frac against ``contract_bwd_frac`` in interpret mode,
+    per level, at 1e-5 of each output's term magnitudes (the same f32
+    products summed in another order); then the whole encode's point
+    gradient against sum_l scale_l * d_frac_l of that kernel."""
+    jm, tm = _metas(name)
+    n = 2048                    # a multiple of the Pallas TILE (1024)
+    pages, pts, g = _grad_inputs(jm, 3000, 24)
+    # away from frac == 0, where the two sides differ by design
+    pts, g = _away_from_edges(pts, jm)[:n], g[:n]
+    assert len(pts) == n
+    haloed = jhp.halo_pages(jnp.asarray(pages), jm).astype(jnp.bfloat16)
+    pidx, local, frac = jhp._page_indices_lm(jnp.asarray(pts), jm)
+    c = jm.n_channels
+    ref = np.stack([np.asarray(jtri.contract_bwd_frac(
+        jnp.take(haloed, pidx[lvl], axis=0), local[lvl][:, None, :],
+        frac[lvl][:, None, :], jnp.asarray(g[:, lvl * c:(lvl + 1) * c]), 1,
+        c)[:, 0]) for lvl in range(jm.n_levels)])          # [L, N, 3]
+    t_haloed = thp.halo_pages(torch.from_numpy(pages), tm).to(torch.bfloat16)
+    tpidx, tlocal, tfrac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([tlocal.float(), tfrac], dim=-1)
+    out = ttri.trilinear_bwd_frac(t_haloed, tpidx, lf, torch.from_numpy(g))
+    mag = ttri.trilinear_bwd_frac_ref(t_haloed, tpidx, lf,
+                                      torch.from_numpy(g), magnitudes=True)
+    assert out.shape == (jm.n_levels, n, 6)
+    assert float(out[..., :3].abs().max()) == 0.0
+    assert float(mag.max()) > 1.0
+    err = np.abs(out[..., 3:].numpy() - ref)
+    assert np.all(err <= 1e-5 * mag[..., 3:].numpy() + 1e-30)
+    d_pts = np.einsum("l,lnk->nk", jm.scales, ref)
+    got, _ = _point_grad(pts, pages, tm, g, torch.bfloat16)
+    scale = float(np.abs(d_pts).max())
+    np.testing.assert_allclose(got.numpy(), d_pts, rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_point_gradient_at_frac_zero(pallas_interpret):
+    """At frac == 0 exactly the port gives the JAX jnp branch's
+    one-sided derivative (-1 / +1 per corner pair); the Pallas hat
+    derivative gives 0 on that axis (a divergence between the JAX
+    package's two branches, ROADMAP §C)."""
+    _, tm = _metas("mixed")
+    n, c = 1024, tm.n_channels
+    rng = np.random.default_rng(25)
+    haloed = rng.uniform(-1, 1, (tm.total_pages, c * 128)).astype(np.float32)
+    pidx = rng.integers(0, tm.total_pages, (1, n)).astype(np.int32)
+    local = rng.integers(0, 4, (1, n, 3)).astype(np.int32)
+    frac = rng.uniform(0.05, 0.95, (1, n, 3)).astype(np.float32)
+    frac[0, :, 0] = 0.0                     # every point on an x edge
+    frac[0, ::2, 2] = 0.0                   # half of them on a z edge too
+    g = rng.normal(size=(n, c)).astype(np.float32)
+    rows = jnp.take(jnp.asarray(haloed), jnp.asarray(pidx[0]), axis=0)
+    jnp_ref = np.asarray(jhp._dfrac_level(
+        rows, jnp.asarray(local[0]), jnp.asarray(frac[0]), jnp.asarray(g),
+        c, use_pallas=False))
+    pallas = np.asarray(jhp._dfrac_level(
+        rows, jnp.asarray(local[0]), jnp.asarray(frac[0]), jnp.asarray(g),
+        c, use_pallas=True))
+    lf = torch.from_numpy(np.concatenate([local, frac], -1).astype(
+        np.float32))
+    out = ttri.trilinear_bwd_frac(torch.from_numpy(haloed),
+                                  torch.from_numpy(pidx), lf,
+                                  torch.from_numpy(g))[0, :, 3:].numpy()
+    np.testing.assert_allclose(out, jnp_ref, rtol=0, atol=1e-5)
+    assert np.abs(out[:, 0]).min() > 0.0 and np.abs(out[::2, 2]).min() > 0
+    # the Pallas branch: 0 on the edge axes, the same elsewhere
+    assert np.all(pallas[:, 0] == 0.0) and np.all(pallas[::2, 2] == 0.0)
+    np.testing.assert_allclose(pallas[:, 1], out[:, 1], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed"])
+def test_both_gradients_together(name):
+    """Page and point gradients asked for in one backward equal each
+    asked for alone."""
+    jm, tm = _metas(name)
+    pages, pts, g = _grad_inputs(tm, 700, 26)
+    d_pts, d_pages = _point_grad(pts, pages, tm, g, torch.float32,
+                                 pages_grad=True)
+    alone_pts, none = _point_grad(pts, pages, tm, g, torch.float32)
+    assert none is None
+    tp = torch.from_numpy(pages).requires_grad_(True)
+    feat = thp.paged_encode(torch.from_numpy(pts), tp, tm,
                             compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="contract_bwd_frac"):
-        feat.sum().backward()
-    assert x.grad is None
+    (feat * torch.from_numpy(g)).sum().backward()
+    torch.testing.assert_close(d_pts, alone_pts, rtol=0, atol=0)
+    torch.testing.assert_close(d_pages, tp.grad, rtol=0, atol=0)
+    assert float(d_pts.abs().max()) > 0 and float(d_pages.abs().max()) > 0
+
+
+def test_trilinear_bwd_frac_ref_is_the_cpu_path():
+    """On CPU tensors the wrapper is the plain version and launches no
+    kernel; the chunking does not change the result; bad shapes raise."""
+    _, tm = _metas("mixed")
+    pages, pts, g = _grad_inputs(tm, 1001, 27)
+    haloed = thp.halo_pages(torch.from_numpy(pages), tm)
+    pidx, local, frac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    gt = torch.from_numpy(g)
+    before = ttri.trilinear_bwd_frac.launches
+    a = ttri.trilinear_bwd_frac(haloed, pidx, lf, gt, chunk=256)
+    b = ttri.trilinear_bwd_frac_ref(haloed, pidx, lf, gt, chunk=4096)
+    assert ttri.trilinear_bwd_frac.launches == before
+    assert a.shape == (tm.n_levels, 1001, 6) and a.dtype == torch.float32
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    mag = ttri.trilinear_bwd_frac_ref(haloed, pidx, lf, gt, magnitudes=True)
+    assert bool((mag[..., 3:] >= a[..., 3:].abs() - 1e-6).all())
+    with pytest.raises(ValueError):
+        ttri.trilinear_bwd_frac(haloed, pidx, lf, gt[:-1])
+    with pytest.raises(ValueError):
+        ttri.trilinear_bwd_frac(haloed, pidx, lf[:, :-1], gt)
+    with pytest.raises(ValueError):
+        ttri.trilinear_bwd_frac(haloed[:, :-1], pidx, lf, gt)
 
 
 def test_trilinear_bwd_ref_is_the_cpu_path():

@@ -15,6 +15,10 @@ Tolerances:
   hat-form weights differ from the plain one-hot form by an ulp);
   in bf16 one bf16 rounding of the sum more (2^-8 of it). Two launches
   on the same inputs are bitwise equal.
+* trilinear_bwd_frac in f32 and bf16: 1e-5 x the sum of the magnitudes
+  of each output's terms (rows widened to f32 and g kept in f32 on both
+  sides; only the order of the f32 sums differs). Two launches on the
+  same inputs are bitwise equal.
 """
 
 import numpy as np
@@ -154,3 +158,84 @@ def test_encode_gradient_on_the_card(cuda):
     scale = float(grads[2].abs().max())
     torch.testing.assert_close(grads[0], grads[2], rtol=0,
                                atol=1e-5 * scale)
+
+
+def _frac_inputs(cfg, n, dtype, device, seed=0):
+    haloed, page_idx, lf = _inputs(cfg, n, dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    grad = torch.randn((n, cfg.n_levels * cfg.n_channels), generator=g,
+                       device=device)
+    return haloed, page_idx, lf, grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 1001, 65537])
+@pytest.mark.parametrize("channels", [2, 4])
+def test_trilinear_bwd_frac_matches_plain(cuda, dtype, n, channels):
+    cfg = ModelConfig(n_levels=8, n_channels=channels, log2_table_size=14)
+    haloed, page_idx, lf, grad = _frac_inputs(cfg, n, dtype, cuda)
+    before = trilinear.trilinear_bwd_frac.launches
+    out = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
+    torch.cuda.synchronize()
+    assert trilinear.trilinear_bwd_frac.launches == before + 1
+    assert out.shape == (8, n, 6) and out.dtype == torch.float32
+    assert float(out[..., :3].abs().max()) == 0.0
+    ref = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, grad,
+                                           chunk=4096)
+    mag = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, grad,
+                                           chunk=4096, magnitudes=True)
+    assert bool(((out - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    again = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
+    assert torch.equal(out, again)
+    # and the plain version on the CPU gives the same numbers
+    cpu = trilinear.trilinear_bwd_frac(haloed.cpu(), page_idx.cpu(),
+                                       lf.cpu(), grad.cpu())
+    assert bool(((out.cpu() - cpu).abs() <= 1e-5 * mag.cpu() + 1e-6).all())
+
+
+def test_trilinear_bwd_frac_rejects_bad_inputs(cuda):
+    cfg = ModelConfig(n_levels=2, n_channels=4, log2_table_size=12)
+    haloed, page_idx, lf, grad = _frac_inputs(cfg, 100, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed.half(), page_idx, lf, grad)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed, page_idx.long(), lf, grad)
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad.double())
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad[:, :-1])
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf,
+                                     grad.t().contiguous().t())
+    with pytest.raises(ValueError):
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad.cpu())
+
+
+def test_encode_point_gradient_on_the_card(cuda):
+    """The encode's point gradient (kernel + the frac path) on the card
+    against the CPU, deterministic, and with the page gradient asked for
+    too. Tolerance 1e-4 x the largest entry: the finest scale (1024)
+    multiplies each level's f32 sums, and CUDA and the CPU may round the
+    scaled point a cell apart for a point on an edge."""
+    cfg = ModelConfig(n_levels=8, n_channels=4, log2_table_size=14)
+    meta = hash_field.paged_meta(cfg)
+    g = torch.Generator().manual_seed(4)
+    pages = torch.rand((meta.total_pages, 4, 4, 4, 4), generator=g) * 2 - 1
+    pts = torch.rand((20000, 3), generator=g) * 4 - 2
+    cot = torch.randn((20000, 32), generator=g)
+    grads = []
+    for dev, pages_grad in ((cuda, False), (cuda, False), (cuda, True),
+                            (torch.device("cpu"), False)):
+        x = pts.to(dev).requires_grad_(True)
+        p = pages.to(dev).requires_grad_(pages_grad)
+        before = trilinear.trilinear_bwd.launches
+        feat = hash_paged.paged_encode(x, p, meta, compute_dtype=torch.float32)
+        (feat * cot.to(dev)).sum().backward()
+        assert trilinear.trilinear_bwd.launches == before + (
+            pages_grad and dev.type == "cuda")
+        grads.append(x.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], grads[2])
+    scale = float(grads[3].abs().max())
+    torch.testing.assert_close(grads[0], grads[3], rtol=0,
+                               atol=1e-4 * scale)

@@ -1,12 +1,16 @@
-"""Port parity for the slice as a whole: the localizer service's mode-0
-particle search (f2nerf_tpu_torch against f2nerf_tpu on the CPU), with
+"""Port parity for the localizer and its service as a whole: mode 0
+(particle search) and the pose gradient of modes 1 and 2 (differential
+pose refinement), f2nerf_tpu_torch against f2nerf_tpu on the CPU, with
 converted JAX params, one seeded occupancy grid and the same host seed
-on both sides.
+on both sides. The differential modes' runs are in
+``test_torch_localize_diff.py``.
 
 Tolerances: particles are drawn by the same numpy Generator, so they
 are bitwise equal; particle weights atol 1e-4 (softmax of -5 log loss:
 a relative loss difference e moves a weight by ~5e); fused pose atol
-1e-4; score rtol 1e-3.
+1e-4; score rtol 1e-3. The pose gradient atol 1e-4 x its largest entry
+and the loss rtol 1e-5 (f32 sums in another order, amplified by the
+finest level's scale of 1024).
 """
 
 import dataclasses
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from f2nerf_tpu.apps import serve as jserve
+from f2nerf_tpu.core import cameras as jcams
 from f2nerf_tpu.localize import localizer as jloc
 from f2nerf_tpu.models import occupancy as jocc
 from f2nerf_tpu.models import renderer as jrend
@@ -38,26 +43,25 @@ CENTER = np.array([0.1, -0.2, 0.05], np.float32)
 RADIUS = 1.5
 
 
-@pytest.fixture(scope="module")
-def scene(occ_cfg):
-    params, consts = jrend.init(jax.random.key(3), occ_cfg.model, 4)
+def _make_scene(cfg, seed):
+    params, consts = jrend.init(jax.random.key(seed), cfg.model, 4)
     tree = jax.tree.map(np.asarray, params)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     tree["field"]["feat_pool"] = rng.uniform(
         -1.0, 1.0, tree["field"]["feat_pool"].shape).astype(np.float32)
     tree["field"]["mlp"]["b"] = tree["field"]["mlp"]["b"].copy()
     tree["field"]["mlp"]["b"][0] = 6.0    # opaque enough to see structure
-    g = occ_cfg.model.occ_grid_res
-    thresh = jocc.sigma_threshold(occ_cfg.model)
+    g = cfg.model.occ_grid_res
+    thresh = jocc.sigma_threshold(cfg.model)
     dense = (rng.random((g, g, g)) < 0.25).astype(np.float32) * 2 * thresh
     grid = np.stack([dense, dense])
-    tcfg = TConfig.from_dict(dataclasses.asdict(occ_cfg))
+    tcfg = TConfig.from_dict(dataclasses.asdict(cfg))
 
     def make(seed):
-        jl = jloc.Localizer(jax.tree.map(jnp.asarray, tree), consts, occ_cfg,
+        jl = jloc.Localizer(jax.tree.map(jnp.asarray, tree), consts, cfg,
                             INTR, CENTER, RADIUS, H, W,
                             occ_bits=jocc.occ_values(jnp.asarray(grid),
-                                                     occ_cfg.model),
+                                                     cfg.model),
                             seed=seed)
         tl = tloc.Localizer(params_from_numpy(tree, "cpu"), tcfg, INTR,
                             CENTER, RADIUS, H, W,
@@ -74,8 +78,21 @@ def scene(occ_cfg):
         @ offset[:3, :3]
     offset[:, 3] += [0.02, -0.01, 0.03]
     image = np.asarray(jl.render_image(offset))
-    return dict(make=make, tree=tree, grid=grid, jcfg=occ_cfg, tcfg=tcfg,
+    return dict(make=make, tree=tree, grid=grid, jcfg=cfg, tcfg=tcfg,
                 jl=jl, tl=tl, pose0=pose0, image=image)
+
+
+@pytest.fixture(scope="module")
+def scene(occ_cfg):
+    """The occupancy-sampler scene; its ``jl`` is the module's one JAX
+    Localizer for the differential modes (each instance compiles its
+    steps)."""
+    return _make_scene(occ_cfg, 3)
+
+
+@pytest.fixture(scope="module")
+def dense_scene(tiny_cfg):
+    return _make_scene(tiny_cfg, 4)
 
 
 def test_render_image(scene):
@@ -146,18 +163,41 @@ def test_service_mode0_request(scene):
     assert st["previous_score"] == rt["score"]
 
 
-def test_service_unported_modes(scene):
-    _, tl = scene["make"](12)
-    ts = tserve.LocalizerService(tl)
-    ts.handle({"cmd": "init_pose",
-               "pose": tl.camera2world(scene["pose0"]).tolist()})
-    for mode in (1, 2):
-        r = ts.handle({"cmd": "localize", "image": scene["image"].tolist(),
-                       "mode": mode})
-        assert not r["ok"] and "not yet ported" in r["error"]
-    assert ts.handle({"cmd": "bogus"})["ok"] is False
-    with pytest.raises(NotImplementedError):
-        tl.optimize_pose_by_differential(scene["pose0"], scene["image"], 1)
+def _jax_pose_loss_and_grad(s, pose):
+    """jax.value_and_grad of the differential loss, composed from the
+    JAX package's public pieces (rays_from_pose, a VALIDATE render),
+    run eagerly on the occupancy scene: under jit, XLA's fusion moves
+    sample positions by an ulp, which there moves a sample across a
+    fine-level cell edge, where the point gradient jumps."""
+    jl = s["jl"]
+    ij = jnp.asarray(jcams.pixel_grid(H, W))
+    gt = jnp.asarray(s["image"].reshape(H * W, 3))
+
+    def loss_fn(p):
+        o, d = jcams.rays_from_pose(p[None], jl.intrinsic[None], ij)
+        res = jrend.render(jl.params, jl.consts, o, d, None, s["jcfg"].model,
+                           None, train=False, occ_bits=jl.occ_bits)
+        return jnp.sum((res.colors - gt) ** 2) / (H * W * 3)
+
+    grad_fn = jax.value_and_grad(loss_fn)
+    if s["jcfg"].model.sampler_mode == "dense":
+        grad_fn = jax.jit(grad_fn)      # no such flip on the dense scene
+    loss, g = grad_fn(jnp.asarray(pose))
+    return float(loss), np.asarray(g)
+
+
+@pytest.mark.parametrize("which", ["dense_scene", "scene"])
+def test_pose_gradient(which, request):
+    """The pose gradient through the whole VALIDATE render (rays, sampler,
+    contraction, encode point gradient, shader, compositing) against
+    jax.grad: loss rtol 1e-5, gradient atol 1e-4 x its largest entry."""
+    s = request.getfixturevalue(which)
+    loss_j, g_j = _jax_pose_loss_and_grad(s, s["pose0"])
+    loss_t, g_t = s["tl"].pose_gradient(s["pose0"], s["image"])
+    assert g_t.shape == (3, 4) and np.abs(g_j).max() > 0
+    np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)
+    np.testing.assert_allclose(g_t, g_j, rtol=0,
+                               atol=1e-4 * np.abs(g_j).max())
 
 
 def _rpc(f, req):
