@@ -15,7 +15,12 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    (with a seeded O(1) cotangent), ``trilinear_bwd_frac`` on the 13.0 M
    pairs of one mode-1 step (106x240 rays x 64 samples x 8 levels, a
    seeded O(1) cotangent); the two backward kernels also for two
-   launches that must be bitwise equal.
+   launches that must be bitwise equal. ``trilinear_fwd`` and
+   ``trilinear_bwd_frac`` run on uniform random points and again on the
+   paths' own inputs (``in_situ_inputs``: the page indices and fractions
+   of one full-frame render at the serve pose and, for
+   ``trilinear_fwd``, of one mode-0 particle render), each set checked
+   and timed alike.
 3. Serving: a ``Localizer`` at the full-width ``Config()`` model (seeded
    random weights, the seeded 25%-occupied grid of ``bench.py``) behind
    a ``LocalizerService``: ``init_pose``, three mode-0 ``localize``
@@ -55,6 +60,7 @@ import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -161,7 +167,8 @@ def request_inputs(cfg: Config, seed: int, dev: torch.device,
 
 def touched_table_bytes(haloed, page_idx, local_frac) -> int:
     """Bytes of the table cells the 8 corners of these (point, level)
-    pairs touch, each counted once."""
+    pairs touch, each counted once. It counts (page, slot) cells of C
+    channels, so the row layout does not change it."""
     n_pages, width = haloed.shape
     c = width // hash_paged.ROW_PAD
     touched = torch.zeros(n_pages * hash_paged.ROW_PAD, dtype=torch.bool,
@@ -188,39 +195,84 @@ def trilinear_bound_ms(haloed, page_idx, local_frac) -> float:
                 + io_bytes) / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
-def kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
-    haloed, page_idx, lf = request_inputs(cfg, seed, dev)
-    out = trilinear.trilinear_fwd(haloed, page_idx, lf)
-    torch.cuda.synchronize()
-    ref = trilinear.trilinear_fwd_ref(haloed, page_idx, lf,
-                                      chunk=cfg.model.encode_chunk)
-    err = float((out - ref).abs().max())
-    log(f"trilinear_fwd bf16 N={page_idx.shape[1]} L={page_idx.shape[0]}: "
-        f"max |kernel - plain| = {err:.3e} (tol {KERNEL_TOL})")
-    if not (np.isfinite(err) and err <= KERNEL_TOL):
-        raise RuntimeError(f"trilinear_fwd disagrees with its plain "
-                           f"version: {err}")
-    err32 = float((trilinear.trilinear_fwd(haloed.float(), page_idx, lf)
-                   - trilinear.trilinear_fwd_ref(haloed.float(), page_idx,
-                                                 lf)).abs().max())
-    log(f"trilinear_fwd f32: max |kernel - plain| = {err32:.3e}")
-    if not err32 <= KERNEL_TOL:
-        raise RuntimeError(f"trilinear_fwd f32 disagrees: {err32}")
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+def fwd_set(name: str, inputs: tuple, flush: torch.Tensor) -> dict:
+    """trilinear_fwd on one input set (bf16 table, page_idx, local_frac):
+    bf16 and f32 against the plain version, then timed L2 flushed and
+    back to back beside its bound."""
+    haloed, page_idx, lf = inputs
+    errs = {}
+    for table in (haloed.float(), haloed):
+        out = trilinear.trilinear_fwd(table, page_idx, lf)
+        torch.cuda.synchronize()
+        err = float((out - trilinear.trilinear_fwd_ref(table, page_idx, lf)
+                     ).abs().max())
+        log(f"trilinear_fwd {name} {table.dtype} N={page_idx.shape[1]} "
+            f"L={page_idx.shape[0]}: max |kernel - plain| = {err:.3e} "
+            f"(tol {KERNEL_TOL})")
+        if not (np.isfinite(err) and err <= KERNEL_TOL):
+            raise RuntimeError(f"trilinear_fwd {name} {table.dtype} "
+                               f"disagrees with its plain version: {err}")
+        errs[str(table.dtype)] = err
     ms = cuda_ms(lambda: trilinear.trilinear_fwd(haloed, page_idx, lf),
                  flush=flush)
-    plain_ms = cuda_ms(lambda: trilinear.trilinear_fwd_ref(
-        haloed, page_idx, lf, chunk=cfg.model.encode_chunk), flush=flush)
     warm_ms = cuda_ms(lambda: trilinear.trilinear_fwd(haloed, page_idx, lf))
     bound_ms = trilinear_bound_ms(haloed, page_idx, lf)
-    log(f"trilinear_fwd: {ms:.4f} ms (L2 flushed), {warm_ms:.4f} ms "
-        f"(back to back), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    log(f"trilinear_fwd {name} bf16: {ms:.4f} ms (L2 flushed), "
+        f"{warm_ms:.4f} ms (back to back), bound {bound_ms:.4f} ms")
+    res = {"pairs": page_idx.numel(),
+           "max_abs_err": errs[str(torch.float32)],
+           "max_abs_err_bf16": errs[str(torch.bfloat16)], "ms": ms,
+           "warm_ms": warm_ms, "bound_ms": bound_ms}
+    return res
+
+
+def kernel_phase(cfg: Config, seed: int, dev: torch.device, situ: dict
+                 ) -> dict:
+    """trilinear_fwd on one mode-0 request's inputs (uniform random
+    points), then on the paths' own (``situ``); the plain version is
+    timed on the first."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    haloed, page_idx, lf = request_inputs(cfg, seed, dev)
+    res = fwd_set("random", (haloed, page_idx, lf), flush)
+    res["plain_ms"] = cuda_ms(lambda: trilinear.trilinear_fwd_ref(
+        haloed, page_idx, lf, chunk=cfg.model.encode_chunk), flush=flush)
+    log(f"trilinear_fwd plain (random): {res['plain_ms']:.3f} ms")
+    del haloed, page_idx, lf
+    in_situ = {name: fwd_set(name, situ[name], flush)
+               for name in ("frame", "particles")}
     return {"name": "trilinear_fwd", "route": "cuda",
             "source": "f2nerf_tpu_torch/kernels/csrc/trilinear_fwd.cu",
             "replaces": "f2nerf_tpu/kernels/trilinear.py:146 (contract_fwd)",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "launches": None, "bound_by": "bytes", "library_ms": None, **res,
+            "in_situ": in_situ}
+
+
+def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
+    """The encode inputs the paths give the kernels, captured by wrapping
+    ``hash_paged.page_indices`` for one render each: "frame", one
+    full-frame 106x240 render at the serve pose (25,440 rays x 64
+    samples = 1,628,160 points, the render of a mode-1 step and of every
+    reply), and "particles", one mode-0 request's particle render (64
+    particles x 256 pixels x 64 samples = 1,048,576 points). Each is
+    (haloed, page_idx, local_frac) over the localizer's bf16 table, with
+    the differential phase's O(1) features."""
+    loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev))
+    orig = hash_paged.page_indices
+    captured = []
+
+    def capture(points, meta):
+        captured.append(orig(points, meta))
+        return captured[-1]
+
+    pose = np.eye(3, 4, dtype=np.float32)
+    with mock.patch.object(hash_paged, "page_indices", capture):
+        frame = loc.render_image(pose).cpu().numpy()
+        loc.optimize_pose_by_random_search(pose, frame, PARTICLES, 1.0)
+    haloed = loc.params["field"]["haloed"]
+    return {name: (haloed, page_idx.clone(),
+                   torch.cat([local.float(), frac], dim=-1))
+            for name, (page_idx, local, frac)
+            in zip(("frame", "particles"), captured, strict=True)}
 
 
 def seeded_grid(cfg: Config, dev: torch.device) -> torch.Tensor:
@@ -364,57 +416,79 @@ def trilinear_bwd_frac_bound_ms(haloed, page_idx, local_frac) -> float:
                 + io_bytes) / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
-def frac_kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
-    """trilinear_bwd_frac at one mode-1 step's 106x240 rays x 64 samples
-    x 8 levels. Tolerance 1e-5 x the sum of each output's term
-    magnitudes in f32 and in bf16 (rows widened to f32, g in f32 on both
-    sides; only the order of the f32 sums differs)."""
-    n = (FRAME_H // RESIZE) * (FRAME_W // RESIZE) * samples_per_ray(cfg)
-    haloed, page_idx, lf = request_inputs(cfg, seed + 5, dev, n)
-    g = torch.randn((n, page_idx.shape[0] * cfg.model.n_channels),
-                    generator=torch.Generator(device=dev).manual_seed(seed),
-                    device=dev)
+def frac_set(name: str, inputs: tuple, g: torch.Tensor,
+             flush: torch.Tensor) -> dict:
+    """trilinear_bwd_frac on one input set (bf16 table, page_idx,
+    local_frac) and the cotangent g: f32 and bf16 against the plain
+    version and two launches bitwise equal, then timed L2 flushed and
+    back to back beside its bound."""
+    haloed, page_idx, lf = inputs
     errs = {}
     for table in (haloed.float(), haloed):
-        name = str(table.dtype)
         out = trilinear.trilinear_bwd_frac(table, page_idx, lf, g)
         again = trilinear.trilinear_bwd_frac(table, page_idx, lf, g)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            raise RuntimeError(f"trilinear_bwd_frac {name}: two launches on "
-                               f"the same inputs differ")
+            raise RuntimeError(f"trilinear_bwd_frac {name} {table.dtype}: "
+                               f"two launches on the same inputs differ")
         ref = trilinear.trilinear_bwd_frac_ref(table, page_idx, lf, g)
         mag = trilinear.trilinear_bwd_frac_ref(table, page_idx, lf, g,
                                                magnitudes=True)
         err = (out - ref).abs()
         ratio = float((err / (KERNEL_TOL * mag + 1e-30)).max())
-        errs[name] = float(err.max())
-        log(f"trilinear_bwd_frac {name} N={n} L={page_idx.shape[0]}: max "
-            f"|kernel - plain| = {errs[name]:.3e}, max err/tol = "
-            f"{ratio:.3f}; two launches bitwise equal")
+        errs[str(table.dtype)] = float(err.max())
+        log(f"trilinear_bwd_frac {name} {table.dtype} N={page_idx.shape[1]} "
+            f"L={page_idx.shape[0]}: max |kernel - plain| = "
+            f"{errs[str(table.dtype)]:.3e}, max err/tol = {ratio:.3f}; two "
+            f"launches bitwise equal")
         if not (np.isfinite(ratio) and ratio <= 1.0):
-            raise RuntimeError(f"trilinear_bwd_frac {name} disagrees with "
-                               f"its plain version: err/tol {ratio}")
+            raise RuntimeError(f"trilinear_bwd_frac {name} {table.dtype} "
+                               f"disagrees with its plain version: err/tol "
+                               f"{ratio}")
         del out, again, ref, mag, err
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms = cuda_ms(lambda: trilinear.trilinear_bwd_frac(haloed, page_idx, lf,
-                                                      g), flush=flush)
-    warm_ms = cuda_ms(lambda: trilinear.trilinear_bwd_frac(haloed, page_idx,
-                                                           lf, g))
-    plain_ms = cuda_ms(lambda: trilinear.trilinear_bwd_frac_ref(
-        haloed, page_idx, lf, g), reps=3, flush=flush)
+    args = (haloed, page_idx, lf, g)
+    ms = cuda_ms(lambda: trilinear.trilinear_bwd_frac(*args), flush=flush)
+    warm_ms = cuda_ms(lambda: trilinear.trilinear_bwd_frac(*args))
     bound_ms = trilinear_bwd_frac_bound_ms(haloed, page_idx, lf)
-    log(f"trilinear_bwd_frac bf16: {ms:.4f} ms (L2 flushed), {warm_ms:.4f} "
-        f"ms (back to back), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-        f"ms")
+    log(f"trilinear_bwd_frac {name} bf16: {ms:.4f} ms (L2 flushed), "
+        f"{warm_ms:.4f} ms (back to back), bound {bound_ms:.4f} ms")
+    res = {"pairs": page_idx.numel(),
+           "max_abs_err": errs[str(torch.float32)],
+           "max_abs_err_bf16": errs[str(torch.bfloat16)], "ms": ms,
+           "warm_ms": warm_ms, "bound_ms": bound_ms}
+    return res
+
+
+def frac_kernel_phase(cfg: Config, seed: int, dev: torch.device,
+                      situ: dict) -> dict:
+    """trilinear_bwd_frac at one mode-1 step's 106x240 rays x 64 samples
+    x 8 levels: uniform random points, then the full-frame render's own
+    (``situ``), each with a seeded O(1) cotangent; the plain version is
+    timed on the first. Tolerance 1e-5 x the sum of each output's term
+    magnitudes in f32 and in bf16 (rows widened to f32, g in f32 on both
+    sides; only the order of the f32 sums differs)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    n = (FRAME_H // RESIZE) * (FRAME_W // RESIZE) * samples_per_ray(cfg)
+    inputs = request_inputs(cfg, seed + 5, dev, n)
+    g = torch.randn((n, inputs[1].shape[0] * cfg.model.n_channels),
+                    generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    res = frac_set("random", inputs, g, flush)
+    res["plain_ms"] = cuda_ms(lambda: trilinear.trilinear_bwd_frac_ref(
+        *inputs, g), reps=3, flush=flush)
+    log(f"trilinear_bwd_frac plain (random): {res['plain_ms']:.3f} ms")
+    del inputs
+    frame = situ["frame"]
+    if frame[1].shape[1] != n:
+        raise RuntimeError(f"the frame render has {frame[1].shape[1]} "
+                           f"points, expected {n}")
+    in_situ = {"frame": frac_set("frame", frame, g, flush)}
     return {"name": "trilinear_bwd_frac", "route": "cuda",
             "source": "f2nerf_tpu_torch/kernels/csrc/trilinear_bwd_frac.cu",
             "replaces": "f2nerf_tpu/kernels/trilinear.py:198 "
                         "(contract_bwd_frac)",
-            "launches": None, "max_abs_err": errs[str(torch.float32)],
-            "max_abs_err_bf16": errs[str(torch.bfloat16)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "warm_ms": warm_ms}
+            "launches": None, "bound_by": "bytes", "library_ms": None, **res,
+            "in_situ": in_situ}
 
 
 def make_trainer(cfg: Config, seed: int, dev: torch.device,
@@ -477,7 +551,40 @@ def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
             "median_ms": float(np.median(steady)),
             "refresh_step_ms": [times[k] for k in refresh],
             "rays_per_s": TRAIN_RAYS / mean_ms * 1e3, "peak_mem_gb": peak_gb,
-            "launches": launches, "losses": losses, "profile": prof}
+            "launches": launches, "losses": losses, "profile": prof,
+            "halo": halo_times(params["field"]["feat_pool"], cfg)}
+
+
+def halo_times(pool: torch.Tensor, cfg: Config) -> dict:
+    """The training step's halo on its own: ``halo_pages`` and the cast
+    to bf16, then their backward (autograd's transpose of both) for a
+    seeded cotangent, on a copy of ``pool``: its device kernel time,
+    profiled, and its time on the host clock around a synchronized call
+    (median of 20), which the host's dispatch of its few dozen ops sets
+    (CUDA events would time the host too)."""
+    meta = hash_field.paged_meta(cfg.model)
+    pages = pool.detach().clone().requires_grad_(True)
+    cot = torch.randn((meta.total_pages, hash_paged.ROW_PAD * meta.n_channels),
+                      generator=torch.Generator(pool.device).manual_seed(0),
+                      device=pool.device).to(torch.bfloat16)
+
+    def run():
+        pages.grad = None
+        hash_paged.halo_pages(pages, meta).to(torch.bfloat16).backward(cot)
+
+    run()                                           # warm up
+    res = {"profile": profile_call(run, "halo forward + backward")}
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    res["host_ms"] = float(np.median(times))
+    log(f"halo forward + backward: {res['host_ms']:.3f} ms on the host "
+        f"clock (median of 20)")
+    return res
 
 
 def step_check_phase(seed: int, dev: torch.device) -> dict:
@@ -818,16 +925,19 @@ def main() -> int:
     secs = build.build_all()
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s")
     for name in secs:
-        lines = {line.split(":", 1)[-1].strip()
-                 for line in build.build_log(name).splitlines()
-                 if "registers" in line or "spill" in line}
-        for line in sorted(lines):
-            log(f"  {name}: {line}")
+        # each kernel instance's mangled name, then its registers, spills
+        # and shared memory
+        for line in build.build_log(name).splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                log(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
     cfg = Config()
-    kernels = [kernel_phase(cfg, args.seed, dev),
+    situ = in_situ_inputs(cfg, args.seed, dev)
+    kernels = [kernel_phase(cfg, args.seed, dev, situ),
                bwd_kernel_phase(train_cfg(TRAIN_RAYS), args.seed, dev),
-               frac_kernel_phase(cfg, args.seed, dev)]
+               frac_kernel_phase(cfg, args.seed, dev, situ)]
+    del situ
     paths = {"serving": serving_phase(cfg, args.seed, dev),
              "training": training_phase(train_cfg(TRAIN_RAYS), args.seed,
                                         dev),

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use, on the machine with the card, by ``nvcc`` into a shared library
 under ``kernels/build/`` (listed in ``.gitignore``), then loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. ``-Xptxas=-v`` keeps the compiler's register and spill report
-in ``build/<name>-<hash>.log``.
+``ctypes``. The library's file name carries a hash of the source, of
+every header in ``csrc/`` (``*.cuh``: a kernel may include any of them)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. ``-Xptxas=-v`` keeps the compiler's register
+and spill report in ``build/<name>-<hash>.log``.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -41,8 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

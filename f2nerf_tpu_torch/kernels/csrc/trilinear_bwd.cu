@@ -5,13 +5,13 @@
 // f2nerf_tpu/kernels/trilinear.py together with the per-level XLA
 // jax.ops.segment_sum that reduced its d_rows into pages
 // (f2nerf_tpu/ops/hash_paged.py _encode_core_bwd). The TPU kernel wrote
-// d_rows = g (x) w, one dense [C, 128] row per (point, level): 4.3 GB in
+// d_rows = g (x) w, one dense row of C*128 per (point, level): 4.3 GB in
 // bf16 at one training step of the default config. This kernel never
 // materializes it.
 //
 // What it computes, for every page p and slot s = x*25 + y*5 + z of its
-// haloed [C, 128] row:
-//   d_haloed[p, c*128 + s] = sum over entries m with page(m) = p of
+// haloed row, slot-major [128, C] (trilinear_common.cuh):
+//   d_haloed[p, s*C + c] = sum over entries m with page(m) = p of
 //       g[i(m), l(m)*C + c] * wx[x] * wy[y] * wz[z]
 //   w_ax[v] = max(0, 1 - |v - (local_ax + frac_ax)|)
 // which is _axis_factors / _weights exactly. Pad slots 125..127 are 0.
@@ -21,9 +21,10 @@
 // page with a stable sort (glue, as the segment_sum was XLA glue), so
 // every page's entries form one run of the sorted order, in ascending
 // entry index. The sorted order is cut into tiles of kTile entries.
-//   pass 1 (one block per tile): each thread owns one (channel, slot)
-//     and walks the tile's entries in order. A run that lies strictly
-//     inside the tile is a whole page: it is stored to d_haloed at once.
+//   pass 1 (one block per tile): each thread t owns one (slot t / C,
+//     channel t % C), the row's column t, and walks the tile's entries
+//     in order. A run that lies strictly inside the tile is a whole
+//     page: it is stored to d_haloed at once.
 //     The tile's first run and its last run may continue into the
 //     neighbouring tiles: their sums go to a scratch row each.
 //   pass 2 (one block per tile): the tile that holds the first entry of
@@ -36,8 +37,8 @@
 //
 // Layout: g [N, L*C] f32; local_frac [L, N, 6] f32 (entry m = l*N + i);
 // skey [M] int32 sorted page keys; perm [M] int64 entry of each sorted
-// position; d_haloed [P, C*128] (bf16 or f32); partial [tiles, 2, C*128]
-// f32 scratch.
+// position; d_haloed [P, 128*C] slot-major (bf16 or f32); partial
+// [tiles, 2, 128*C] f32 scratch.
 //
 // Bound on an H100 SXM (3.35 TB/s): per entry the useful bytes are C*4 B
 // of g, 24 B of local_frac, 4 B of key and 8 B of permutation (~52 B at
@@ -48,7 +49,7 @@
 // chip_smoke.py computes this bound from its own inputs.
 //
 // Design (simple first): the tile's weights and cotangents are staged in
-// shared memory, then every thread (channel, slot) evaluates its slot's
+// shared memory, then every thread (slot, channel) evaluates its slot's
 // weight for every entry: the TPU kernel's dense 128-slot work, 16x the
 // 8 nonzero corners, but from shared memory and with no atomics. A
 // corner-only design with a warp per page run is later work.
@@ -105,8 +106,8 @@ trilinear_bwd_tiles(const float* __restrict__ g,
   }
   __syncthreads();
 
-  const int c = threadIdx.x / kRowPad;
-  const int s = threadIdx.x % kRowPad;
+  const int s = threadIdx.x / C;
+  const int c = threadIdx.x % C;
   const bool live = s < kCells;
   const int sx = live ? s / 25 : 0;
   const int sy = live ? (s / 5) % 5 : 0;

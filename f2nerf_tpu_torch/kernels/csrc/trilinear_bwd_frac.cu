@@ -11,7 +11,7 @@
 // What it computes, per point i and level l, with page = page_idx[l, i],
 // (lx, ly, lz, fx, fy, fz) = local_frac[l, i] and the cotangent
 // g_c = g[i, l*C + c] of feat[i, l*C + c]:
-//   v_k   = sum_c g_c * haloed[page, c*128 + 25*(lx+dx) + 5*(ly+dy) + (lz+dz)]
+//   v_k   = sum_c g_c * haloed[page, (25*(lx+dx) + 5*(ly+dy) + (lz+dz))*C + c]
 //           for the 8 corners k = (dx, dy, dz) in {0,1}^3
 //   d_fx  = sum_k v_k * (dx ? +1 : -1) * wy * wz, and alike for y and z,
 //   w_ax  = (d_ax ? f_ax : 1 - f_ax)
@@ -22,11 +22,12 @@
 // derivative gives 0 there. g is f32 and the rows are widened to f32
 // before the product, as in _bwd_frac_kernel; all sums are f32.
 //
-// Layout: haloed [P_total, C*128] (bf16 or f32), page_idx [L, N] int32
-// (global page index), local_frac [L, N, 6] f32, g [N, L*C] f32,
-// d_local_frac [L, N, 6] f32: columns 0-2 (the integer `local` coords)
-// are written as zeros, columns 3-5 get d_frac, so the autograd
-// backward returns the whole tensor without a concatenation.
+// Layout: haloed [P_total, 128*C] slot-major (bf16 or f32; see
+// trilinear_common.cuh), page_idx [L, N] int32 (global page index),
+// local_frac [L, N, 6] f32, g [N, L*C] f32, d_local_frac [L, N, 6] f32:
+// columns 0-2 (the integer `local` coords) are written as zeros, columns
+// 3-5 get d_frac, so the autograd backward returns the whole tensor
+// without a concatenation.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): per (point, level)
 // the function must read 4 B of page index, 24 B of local_frac and
@@ -34,116 +35,115 @@
 // touch are read once each (at most the 56 MB haloed table in bf16).
 // At one mode-1 step's 13.0 M (point, level) pairs that is about
 // 0.75 GB, 0.22 ms; the work is ~136 flops per pair, 1.8 GFLOP, far
-// below the compute bound: the kernel is bound by bytes.
-// chip_smoke.py computes the bound from its own inputs.
+// below the compute bound: the byte bound is the bound, and
+// chip_smoke.py computes it from its own inputs.
 //
-// Design (simple first, as trilinear_fwd.cu): one thread per (point,
-// level), level-major so neighbouring threads read neighbouring
-// page_idx / local_frac entries; the 8 corners gathered by the thread
-// itself, so no [N, C*128] rows buffer exists; C cotangents and three
-// accumulators in registers; no shared memory, no atomics (each output
-// is written by one thread, so two launches are bitwise equal).
+// As in trilinear_fwd.cu, what holds the kernel above that bound is the
+// number of sector requests: channel-major rows took 8*C scalar corner
+// loads per pair, plus C scalar loads of g 128 B apart and 6 scalar
+// stores (44 requests at C = 4).
+//
+// Design: trilinear_fwd's (trilinear_common.cuh): one vector load per
+// corner, warp = level and lane = point, so page_idx and local_frac
+// reads are coalesced. The block's [32, L*C] slice of g is one
+// contiguous run, read with 16 B loads into shared memory, where each
+// thread takes its C values. Each thread writes its 6 outputs as three
+// float2. About 13 requests per pair. No atomics: each output has one
+// writer, so two launches on the same inputs are bitwise equal.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trilinear_common.cuh"
 
 namespace {
 
-constexpr int kRowPad = 128;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using namespace trilinear;
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 trilinear_bwd_frac_kernel(const T* __restrict__ haloed,
                           const int32_t* __restrict__ page_idx,
                           const float* __restrict__ local_frac,
                           const float* __restrict__ g,
                           float* __restrict__ d_local_frac, int64_t n,
                           int n_levels, int64_t n_pages) {
-  const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (m >= n * n_levels) return;
-  const int lvl = (int)(m / n);
-  const int64_t i = m - (int64_t)lvl * n;
+  extern __shared__ float tile[];          // [kPoints][L*C + 1]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int row = n_levels * C;
+  const int64_t i0 = (int64_t)blockIdx.x * kPoints;
+  const int count = (int)(n - i0 < kPoints ? n - i0 : kPoints);
 
-  // in range by construction; clamp like the forward's gather
-  int64_t page = page_idx[m];
-  page = page < 0 ? 0 : (page >= n_pages ? n_pages - 1 : page);
-  const float* lf = local_frac + m * 6;
-  const int lx = min(max((int)lf[0], 0), 3);
-  const int ly = min(max((int)lf[1], 0), 3);
-  const int lz = min(max((int)lf[2], 0), 3);
-  const float fx = lf[3], fy = lf[4], fz = lf[5];
-  const T* row = haloed + page * (int64_t)(C * kRowPad);
+  move_run<true>(g + i0 * row, tile, count * row, row);
+  __syncthreads();
+  if (lane >= count) return;
 
-  float gc[C];
-  const float* gi = g + i * (int64_t)(n_levels * C) + lvl * C;
+  for (int lvl = warp; lvl < n_levels; lvl += warps) {
+    const int64_t m = (int64_t)lvl * n + i0 + lane;
+    const Point p = read_point(page_idx, local_frac, m, n_pages);
+    const T* rowp = haloed + p.page * (int64_t)(kRowPad * C);
+    float gc[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) gc[c] = gi[c];
+    for (int c = 0; c < C; ++c) gc[c] = tile[lane * (row + 1) + lvl * C + c];
 
-  float dfx = 0.f, dfy = 0.f, dfz = 0.f;
+    float dfx = 0.f, dfy = 0.f, dfz = 0.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    const int slot = 25 * (lx + dx) + 5 * (ly + dy) + (lz + dz);
-    float v = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+      float corner[C];
+      load_corner<T, C>(rowp + corner_column<C>(p, k), corner);
+      float v = 0.f;
 #pragma unroll
-    for (int c = 0; c < C; ++c) v += gc[c] * to_float(row[c * kRowPad + slot]);
-    const float wx = dx ? fx : 1.f - fx;
-    const float wy = dy ? fy : 1.f - fy;
-    const float wz = dz ? fz : 1.f - fz;
-    dfx += (dx ? v : -v) * (wy * wz);
-    dfy += (dy ? v : -v) * (wx * wz);
-    dfz += (dz ? v : -v) * (wx * wy);
+      for (int c = 0; c < C; ++c) v += gc[c] * corner[c];
+      const float wx = dx ? p.fx : 1.f - p.fx;
+      const float wy = dy ? p.fy : 1.f - p.fy;
+      const float wz = dz ? p.fz : 1.f - p.fz;
+      dfx += (dx ? v : -v) * (wy * wz);
+      dfy += (dy ? v : -v) * (wx * wz);
+      dfz += (dz ? v : -v) * (wx * wy);
+    }
+    float2* out = reinterpret_cast<float2*>(d_local_frac) + m * 3;
+    out[0] = make_float2(0.f, 0.f);
+    out[1] = make_float2(0.f, dfx);
+    out[2] = make_float2(dfy, dfz);
   }
-  float* out = d_local_frac + m * 6;
-  out[0] = 0.f;
-  out[1] = 0.f;
-  out[2] = 0.f;
-  out[3] = dfx;
-  out[4] = dfy;
-  out[5] = dfz;
 }
 
 template <typename T, int C>
-void launch(const void* haloed, const int32_t* page_idx,
-            const float* local_frac, const float* g, float* d_local_frac,
-            int64_t n, int n_levels, int64_t n_pages, cudaStream_t stream) {
-  const int64_t total = n * n_levels;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  trilinear_bwd_frac_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
+int launch(const void* haloed, const int32_t* page_idx,
+           const float* local_frac, const float* g, float* d_local_frac,
+           int64_t n, int n_levels, int64_t n_pages, cudaStream_t stream) {
+  unsigned blocks;
+  int threads;
+  size_t smem;
+  if (!launch_shape(n, n_levels, C, &blocks, &threads, &smem))
+    return (int)cudaErrorInvalidValue;
+  trilinear_bwd_frac_kernel<T, C><<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(haloed), page_idx, local_frac, g, d_local_frac,
       n, n_levels, n_pages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched); an
-// unsupported channel count returns cudaErrorInvalidValue unlaunched.
+// unsupported channel count, L*C over kMaxRowFloats or too many points
+// return cudaErrorInvalidValue unlaunched. haloed and g must start
+// 16 B-aligned, local_frac and d_local_frac 8 B-aligned.
 extern "C" int trilinear_bwd_frac(const void* haloed, int haloed_is_bf16,
                                   const int32_t* page_idx,
                                   const float* local_frac, const float* g,
                                   float* d_local_frac, int64_t n,
                                   int n_levels, int n_channels,
                                   int64_t n_pages, void* stream) {
-  if (n * n_levels == 0) return 0;
-  if ((n * n_levels + kThreads - 1) / kThreads > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
+  if (n == 0 || n_levels == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F2_CASE(CH)                                                         \
   case CH:                                                                  \
-    if (haloed_is_bf16)                                                     \
-      launch<__nv_bfloat16, CH>(haloed, page_idx, local_frac, g,            \
-                                d_local_frac, n, n_levels, n_pages, s);     \
-    else                                                                    \
-      launch<float, CH>(haloed, page_idx, local_frac, g, d_local_frac, n,   \
-                        n_levels, n_pages, s);                              \
-    break;
+    return haloed_is_bf16                                                   \
+               ? launch<__nv_bfloat16, CH>(haloed, page_idx, local_frac, g, \
+                                           d_local_frac, n, n_levels,       \
+                                           n_pages, s)                      \
+               : launch<float, CH>(haloed, page_idx, local_frac, g,         \
+                                   d_local_frac, n, n_levels, n_pages, s);
   switch (n_channels) {
     F2_CASE(1)
     F2_CASE(2)
@@ -153,5 +153,4 @@ extern "C" int trilinear_bwd_frac(const void* haloed, int haloed_is_bf16,
       return (int)cudaErrorInvalidValue;
   }
 #undef F2_CASE
-  return (int)cudaGetLastError();
 }

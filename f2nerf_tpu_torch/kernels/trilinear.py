@@ -21,6 +21,10 @@ wrappers. Together they port every TPU kernel of the JAX package.
   gives the JAX jnp branch's one-sided derivative (the Pallas hat form
   gives 0 there).
 
+The haloed table is slot-major, [P, 128*C] with the C channels of slot
+s at columns s*C .. s*C + C - 1 (``ops/hash_paged.py``), so a corner is
+one vector load in the CUDA kernels.
+
 Each wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises.
 """
@@ -31,8 +35,11 @@ import ctypes
 
 import torch
 
-ROW_PAD = 128        # lane-padded haloed row width per channel
+ROW_PAD = 128        # slots of a haloed row (125 cells, lane-padded)
 _SUPPORTED_CHANNELS = (1, 2, 4, 8)
+# largest L*C of trilinear_fwd / trilinear_bwd_frac: a block's [32, L*C]
+# f32 tile in shared memory (kMaxRowFloats, csrc/trilinear_common.cuh)
+_MAX_LEVEL_CHANNELS = 256
 
 
 def trilinear_fwd_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
@@ -40,7 +47,7 @@ def trilinear_fwd_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
                       chunk: int = 20480) -> torch.Tensor:
     """Plain version: gather rows, build the lane-padded f32 weight row
     (the counterpart of ``_weight_row``), contract; chunked by ``chunk``
-    points to bound the [chunk, C*128] rows buffer."""
+    points to bound the [chunk, 128*C] rows buffer."""
     from f2nerf_tpu_torch.ops.hash_paged import weight_row
 
     n_levels, n = page_idx.shape
@@ -54,15 +61,15 @@ def trilinear_fwd_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
             rows = haloed.index_select(0, page_idx[lvl, s:e].long())
             lf = local_frac[lvl, s:e]
             w = weight_row(lf[:, 0:3].to(torch.int32), lf[:, 3:6])
-            feat = (rows.float().view(e - s, c, ROW_PAD)
-                    * w[:, None, :]).sum(-1)
+            feat = (rows.float().view(e - s, ROW_PAD, c)
+                    * w[:, :, None]).sum(1)
             out[s:e, lvl * c:(lvl + 1) * c] = feat
     return out
 
 
 def _check(haloed, page_idx, local_frac):
     if haloed.dim() != 2 or haloed.shape[1] % ROW_PAD:
-        raise ValueError(f"haloed must be [P, C*{ROW_PAD}], got "
+        raise ValueError(f"haloed must be [P, {ROW_PAD}*C], got "
                          f"{tuple(haloed.shape)}")
     _check_points(page_idx, local_frac)
 
@@ -79,17 +86,20 @@ def _check_points(page_idx, local_frac):
 def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
                   local_frac: torch.Tensor,
                   chunk: int = 20480) -> torch.Tensor:
-    """feat [N, L*C] f32 from haloed [P, C*128] (bf16 or f32), page_idx
-    [L, N] int32 (global page index) and local_frac [L, N, 6] f32
-    (local xyz as floats in [0, 4), then frac xyz).
+    """feat [N, L*C] f32 from haloed [P, 128*C] (slot-major, see
+    ``ops/hash_paged.py``; bf16 or f32), page_idx [L, N] int32 (global
+    page index) and local_frac [L, N, 6] f32 (local xyz as floats in
+    [0, 4), then frac xyz).
 
     ``chunk`` bounds memory of the plain version only.
     """
     _check(haloed, page_idx, local_frac)
     if haloed.device.type == "cpu":
         return trilinear_fwd_ref(haloed, page_idx, local_frac, chunk)
-    c = _check_table("trilinear_fwd", haloed)
+    n_levels, n = page_idx.shape
+    c = _check_table("trilinear_fwd", haloed, n_levels)
     _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac)
+    haloed, local_frac = _aligned(haloed, 16), _aligned(local_frac, 8)
     from f2nerf_tpu_torch.kernels.build import load_library
 
     lib = load_library("trilinear_fwd")
@@ -99,7 +109,6 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    n_levels, n = page_idx.shape
     feat = torch.empty((n, n_levels * c), dtype=torch.float32,
                        device=haloed.device)
     with torch.cuda.device(haloed.device):
@@ -114,9 +123,10 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
     return feat
 
 
-def _check_table(kernel: str, haloed: torch.Tensor) -> int:
+def _check_table(kernel: str, haloed: torch.Tensor, n_levels: int) -> int:
     """A table the CUDA kernels take: on cuda, bf16 or f32, C in
-    ``_SUPPORTED_CHANNELS``; returns C."""
+    ``_SUPPORTED_CHANNELS``, L*C at most ``_MAX_LEVEL_CHANNELS``;
+    returns C."""
     if haloed.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cuda or cpu, not "
                          f"{haloed.device}")
@@ -124,9 +134,19 @@ def _check_table(kernel: str, haloed: torch.Tensor) -> int:
     if c not in _SUPPORTED_CHANNELS:
         raise ValueError(f"{kernel} supports C in {_SUPPORTED_CHANNELS}, "
                          f"got {c}")
+    if n_levels * c > _MAX_LEVEL_CHANNELS:
+        raise ValueError(f"{kernel} supports L*C <= {_MAX_LEVEL_CHANNELS}, "
+                         f"got {n_levels}*{c}")
     if haloed.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"haloed must be bf16 or f32, got {haloed.dtype}")
     return c
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on an
+    ``nbytes`` boundary: the kernels read it with vector loads, and a
+    view into a larger tensor may start anywhere."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def _check_cuda(**tensors):
@@ -164,8 +184,9 @@ def trilinear_bwd_ref(g: torch.Tensor, page_idx: torch.Tensor,
             e = min(s + chunk, n)
             lf = local_frac[lvl, s:e]
             w = weight_row(lf[:, 0:3].to(torch.int32), lf[:, 3:6])
-            d_rows = (g[s:e, lvl * c:(lvl + 1) * c].float()[:, :, None]
-                      * w[:, None, :]).reshape(e - s, c * ROW_PAD)
+            d_rows = (w[:, :, None]
+                      * g[s:e, lvl * c:(lvl + 1) * c].float()[:, None, :]
+                      ).reshape(e - s, ROW_PAD * c)
             out.index_add_(0, page_idx[lvl, s:e].long(), d_rows)
     return out.to(dtype)
 
@@ -174,7 +195,8 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
                   local_frac: torch.Tensor, n_pages: int,
                   dtype: torch.dtype = torch.float32,
                   chunk: int = 20480) -> torch.Tensor:
-    """d_haloed [n_pages, C*128] in ``dtype`` (bf16 or f32) from the
+    """d_haloed [n_pages, 128*C] (slot-major, see ``ops/hash_paged.py``)
+    in ``dtype`` (bf16 or f32) from the
     cotangent g [N, L*C] f32 of ``trilinear_fwd``'s output and the same
     page_idx [L, N] int32 / local_frac [L, N, 6] f32 it was given.
 
@@ -270,7 +292,7 @@ def trilinear_bwd_frac_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
             w, dw = axis_weights(lf[:, 0:3].to(torch.int32), lf[:, 3:6])
             if magnitudes:
                 rows, g_l, dw = rows.abs(), g_l.abs(), dw.abs()
-            d_w = (g_l[:, :, None] * rows.view(e - s, c, ROW_PAD)).sum(1)
+            d_w = (rows.view(e - s, ROW_PAD, c) * g_l[:, None, :]).sum(2)
             d_w = d_w[:, :PAGE_CELLS].reshape(e - s, 5, 5, 5)
             wx, wy, wz = w.unbind(1)
             dwx, dwy, dwz = dw.unbind(1)
@@ -289,8 +311,9 @@ def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
     """d_local_frac [L, N, 6] f32, the gradient of ``trilinear_fwd``'s
     output with respect to its local_frac: zeros in the three ``local``
     columns (integer coords, as the JAX backward returns them) and
-    d_frac in the last three. Takes the same haloed [P, C*128] (bf16 or
-    f32), page_idx [L, N] int32 and local_frac [L, N, 6] f32 as
+    d_frac in the last three. Takes the same haloed [P, 128*C]
+    (slot-major, see ``ops/hash_paged.py``; bf16 or f32), page_idx
+    [L, N] int32 and local_frac [L, N, 6] f32 as
     ``trilinear_fwd`` and the cotangent g [N, L*C] f32 of its output.
 
     On the card: one launch of ``csrc/trilinear_bwd_frac.cu``; each
@@ -306,11 +329,13 @@ def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
                          f"{tuple(g.shape)}")
     if haloed.device.type == "cpu":
         return trilinear_bwd_frac_ref(haloed, page_idx, local_frac, g, chunk)
-    _check_table("trilinear_bwd_frac", haloed)
+    _check_table("trilinear_bwd_frac", haloed, n_levels)
     if g.dtype != torch.float32:
         raise ValueError(f"g must be float32, got {g.dtype}")
     _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac,
                 g=g)
+    haloed, local_frac = _aligned(haloed, 16), _aligned(local_frac, 8)
+    g = _aligned(g, 16)
     from f2nerf_tpu_torch.kernels.build import load_library
 
     lib = load_library("trilinear_bwd_frac")

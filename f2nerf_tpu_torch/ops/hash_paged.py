@@ -2,18 +2,26 @@
 ``f2nerf_tpu/ops/hash_paged.py``, with both gradients: the page
 gradient for training and the point gradient for pose refinement).
 
-The layout is the JAX package's, unchanged, so converted parameters and
-page indices agree exactly:
+The parameter layout is the JAX package's, unchanged, so converted
+parameters and page indices agree exactly:
 
-* the table is stored as **pages** of 4x4x4 cells with C channels;
+* the table is stored as **pages** of 4x4x4 cells with C channels,
+  ``pages`` [P_total, C, 4, 4, 4];
 * the page hash is **additive**, page(Xb, Yb, Zb) = (A*Xb + B*Yb + Zb)
   mod N per level, so the +x/+y/+z block neighbours of page p are pages
   p+A, p+B, p+1 and a **haloed** table (each page extended to 5x5x5)
   is three roll+concat passes; a point's 8 trilinear corners always lie
   inside one haloed page;
-* coarse levels whose block grid fits the budget are stored dense;
-* haloed rows are channel-major and lane-padded: [C, 128] per page
-  (125 cells + 3 pad).
+* coarse levels whose block grid fits the budget are stored dense.
+
+The haloed table, which only the encode reads, has the port's own
+layout: its rows are **slot-major** and lane-padded, [P_total, 128*C]
+with page p's row a [128 slots, C] block. Element (slot s, channel c)
+sits at column s*C + c, s = 25x + 5y + z over the 5x5x5 haloed cells;
+slots 125..127 are zero. A corner's C channels are contiguous, so the
+CUDA kernels fetch each corner with one vector load. The JAX package's
+rows are channel-major, [C, 128] per page: the two are one transpose of
+the last two axes of [P, C, 128] apart.
 
 The encode is :class:`_EncodeCore`, the counterpart of the JAX
 ``_encode_core`` custom VJP: its forward is one call of the
@@ -124,28 +132,30 @@ def init_pages(generator: torch.Generator, meta: PagedMeta,
 
 
 def halo_pages(pages: torch.Tensor, meta: PagedMeta) -> torch.Tensor:
-    """Materialize haloed page rows [P_total, C * 128].
+    """Materialize the haloed table [P_total, 128 * C], slot-major (see
+    the module docstring).
 
-    Three roll+concat passes per level: the +x/+y/+z block neighbour of
-    page p is page p+A / p+B / p+1.
+    Three roll+concat passes per level on a channel-last view of the
+    pages ([P, 4, 4, 4, C], a view: the first concatenation writes the
+    new layout): the +x/+y/+z block neighbour of page p is page p+A /
+    p+B / p+1, and each roll moves only the one plane that the halo
+    takes from it. The last pass also appends the 3 zero pad slots.
     """
+    c = meta.n_channels
+    levels = pages.permute(0, 2, 3, 4, 1).split(list(meta.n_pages))
     out = []
-    for lvl in range(meta.n_levels):
-        off = meta.page_offset[lvl]
+    for lvl, t in enumerate(levels):                 # [P, 4, 4, 4, C]
         n_p = meta.n_pages[lvl]
-        t = pages[off:off + n_p]                     # [P, C, 4, 4, 4]
         a = int(meta.a[lvl]) % n_p
         b = int(meta.b[lvl]) % n_p
-        hz = torch.cat([t, torch.roll(t, -1, dims=0)[..., :, :, :1]], dim=4)
-        hy = torch.cat([hz, torch.roll(hz, -b, dims=0)[..., :, :1, :]],
-                       dim=3)
-        hx = torch.cat([hy, torch.roll(hy, -a, dims=0)[..., :1, :, :]],
-                       dim=2)
-        out.append(hx)
-    h = torch.cat(out, dim=0)                        # [P_total, C, 5,5,5]
-    h = h.reshape(meta.total_pages, meta.n_channels, PAGE_CELLS)
-    h = torch.nn.functional.pad(h, (0, ROW_PAD - PAGE_CELLS))
-    return h.reshape(meta.total_pages, meta.n_channels * ROW_PAD)
+        hz = torch.cat([t, torch.roll(t[:, :, :, :1], -1, dims=0)], dim=3)
+        hy = torch.cat([hz, torch.roll(hz[:, :, :1], -b, dims=0)], dim=2)
+        plane = torch.roll(hy[:, :1], -a, dims=0)    # x halo [P, 1, 5, 5, C]
+        out.append(torch.cat([
+            hy.reshape(n_p, 4 * HALO * HALO, c),
+            plane.reshape(n_p, HALO * HALO, c),
+            hy.new_zeros((n_p, ROW_PAD - PAGE_CELLS, c))], dim=1))
+    return torch.cat(out, dim=0).reshape(meta.total_pages, ROW_PAD * c)
 
 
 def page_indices(points: torch.Tensor, meta: PagedMeta
@@ -218,7 +228,7 @@ def weight_row(local: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
 
 
 class _EncodeCore(torch.autograd.Function):
-    """feat [N, L*C] f32 from haloed [P, C*128], page_idx [L, N] and
+    """feat [N, L*C] f32 from haloed [P, 128*C], page_idx [L, N] and
     local_frac [L, N, 6]; differentiable in ``haloed`` (the page
     gradient) and in ``local_frac`` (the point gradient, whose ``local``
     columns get zeros), either or both (JAX ``_encode_core``,

@@ -3,7 +3,10 @@ and kernels.trilinear's plain version against f2nerf_tpu.ops.hash_paged).
 
 Tolerances:
 * page layout, page indices, local cell coords and the haloed table are
-  integer or pure data movement: exactly equal;
+  integer or pure data movement: exactly equal (the port's haloed rows
+  are slot-major, [128, C] per page, the JAX package's channel-major,
+  [C, 128]: the tests compare them through ``_slot_major`` /
+  ``_channel_major``);
 * fp32 encode against the JAX jnp branch: atol 1e-5 (f32 sums of 8
   nonzero products of O(1) features, summed in another order);
 * bf16 encode against the Pallas kernel itself, run in interpret mode:
@@ -48,13 +51,30 @@ from f2nerf_tpu_torch.kernels import trilinear as ttri
 from f2nerf_tpu_torch.models import hash_field as thf
 from f2nerf_tpu_torch.ops import hash_paged as thp
 
-# small layouts: both hashed levels (tiny), a dense+hashed mix, and the
-# full default model
+# small layouts: both hashed levels (tiny), a dense+hashed mix, the full
+# default model, and the two ends of the channel counts the kernels take
 CONFIGS = {
     "tiny": dict(n_levels=2, n_channels=2, log2_table_size=10),
     "mixed": dict(n_levels=4, n_channels=4, log2_table_size=12),
     "default": {},
+    "one_channel": dict(n_levels=3, n_channels=1, log2_table_size=10),
+    "eight_channels": dict(n_levels=3, n_channels=8, log2_table_size=11),
 }
+
+
+def _slot_major(rows, c):
+    """Channel-major haloed rows [P, C*128] (the JAX package's) in the
+    port's slot-major layout [P, 128*C]."""
+    rows = np.asarray(rows)
+    return rows.reshape(len(rows), c, 128).transpose(0, 2, 1).reshape(
+        len(rows), 128 * c)
+
+
+def _channel_major(rows, c):
+    """The inverse of :func:`_slot_major`."""
+    rows = np.asarray(rows)
+    return rows.reshape(len(rows), 128, c).transpose(0, 2, 1).reshape(
+        len(rows), c * 128)
 
 
 def _metas(name):
@@ -130,15 +150,26 @@ def test_hash_matches_uint32_arithmetic():
     np.testing.assert_array_equal(pages[lvl].numpy(), expect)
 
 
-@pytest.mark.parametrize("name", ["tiny", "mixed"])
+@pytest.mark.parametrize("name", ["tiny", "mixed", "one_channel",
+                                  "eight_channels"])
 def test_halo_pages_exact(name):
+    """The port's slot-major halo is the JAX halo permuted, exactly, for
+    C in {1, 2, 4, 8}; the permutation's inverse gives the JAX rows
+    back, and the pad slots are zero."""
     jm, tm = _metas(name)
+    c = jm.n_channels
     rng = np.random.default_rng(9)
-    pages = rng.uniform(-1, 1, (jm.total_pages, jm.n_channels, 4, 4, 4)
+    pages = rng.uniform(-1, 1, (jm.total_pages, c, 4, 4, 4)
                         ).astype(np.float32)
     hj = np.asarray(jhp.halo_pages(jnp.asarray(pages), jm))
     ht = thp.halo_pages(torch.from_numpy(pages), tm).numpy()
-    np.testing.assert_array_equal(ht, hj)
+    assert ht.shape == hj.shape == (jm.total_pages, 128 * c)
+    np.testing.assert_array_equal(ht, _slot_major(hj, c))
+    np.testing.assert_array_equal(_channel_major(ht, c), hj)
+    assert not ht[:, 125 * c:].any()
+    # corner (slot s, channel k) of page p sits at column s*C + k
+    p, s, k = jm.total_pages - 1, 25 * 4 + 5 * 2 + 3, c - 1
+    assert ht[p, s * c + k] == hj[p, k * 128 + s]
 
 
 def _pages_points(meta, n=3000, seed=10):
@@ -278,9 +309,10 @@ def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
     out = ttri.trilinear_bwd(torch.from_numpy(g), tpidx, lf,
                              tm.total_pages, torch.bfloat16)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
-    mag = ttri.trilinear_bwd_ref(torch.from_numpy(np.abs(g)), tpidx, lf,
-                                 tm.total_pages).numpy()
-    err = np.abs(out.float().numpy() - ref)
+    # the port's rows are slot-major: compare in the JAX package's layout
+    mag = _channel_major(ttri.trilinear_bwd_ref(
+        torch.from_numpy(np.abs(g)), tpidx, lf, tm.total_pages), c)
+    err = np.abs(_channel_major(out.float(), c) - ref)
     assert np.all(err <= 2.0 ** -7 * mag + 1e-30)
     assert float(mag.max()) > 1.0
     # through the whole encode and the halo transpose: the port's bf16
@@ -386,7 +418,8 @@ def test_point_gradient_at_frac_zero(pallas_interpret):
         c, use_pallas=True))
     lf = torch.from_numpy(np.concatenate([local, frac], -1).astype(
         np.float32))
-    out = ttri.trilinear_bwd_frac(torch.from_numpy(haloed),
+    # the same table in the port's slot-major layout
+    out = ttri.trilinear_bwd_frac(torch.from_numpy(_slot_major(haloed, c)),
                                   torch.from_numpy(pidx), lf,
                                   torch.from_numpy(g))[0, :, 3:].numpy()
     np.testing.assert_allclose(out, jnp_ref, rtol=0, atol=1e-5)
@@ -452,9 +485,10 @@ def test_trilinear_bwd_ref_is_the_cpu_path():
     a = ttri.trilinear_bwd(gt, pidx, lf, tm.total_pages, chunk=256)
     b = ttri.trilinear_bwd_ref(gt, pidx, lf, tm.total_pages, chunk=4096)
     assert ttri.trilinear_bwd.launches == before
-    assert a.shape == (tm.total_pages, tm.n_channels * 128)
+    c = tm.n_channels
+    assert a.shape == (tm.total_pages, 128 * c)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
-    assert float(a[:, 125::128].abs().max()) == 0.0     # pad slots
+    assert float(a[:, 125 * c:].abs().max()) == 0.0     # pad slots
     with pytest.raises(ValueError):
         ttri.trilinear_bwd(gt[:-1], pidx, lf, tm.total_pages)
     with pytest.raises(ValueError):

@@ -19,13 +19,26 @@ Tolerances:
   of each output's terms (rows widened to f32 and g kept in f32 on both
   sides; only the order of the f32 sums differs). Two launches on the
   same inputs are bitwise equal.
+
+The ``*_matches_plain`` shapes cover the edges of the kernels' launch
+shape: a block is 32 points x all L levels, warp = level (levels stride
+over at most 8 warps), and the block's [32, L*C] slice of feat / g
+moves through shared memory; so N runs ragged around 32 at L = 8, L
+runs below, at and above 8 at one N, and every C and table type is
+taken at each. The in-situ cases run the kernels on the page indices
+of real renders at the full ``Config()`` width
+(``chip_smoke.in_situ_inputs``), whose rays make neighbouring lanes
+gather from neighbouring cells.
 """
+
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-from f2nerf_tpu_torch.core.config import ModelConfig
+from f2nerf_tpu_torch.core.config import Config, ModelConfig
 from f2nerf_tpu_torch.kernels import trilinear
 from f2nerf_tpu_torch.models import hash_field
 from f2nerf_tpu_torch.ops import hash_paged
@@ -51,18 +64,24 @@ def _inputs(cfg, n, dtype, device, seed=0):
     return haloed, page_idx, torch.cat([local.float(), frac], dim=-1)
 
 
+# (N, L): ragged N at L = 8, then L around the 8 warps of a block
+SHAPES = [(1, 8), (31, 8), (33, 8), (1001, 8), (65537, 8), (1001, 1),
+          (1001, 3), (1001, 16)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 1001, 65537])
-@pytest.mark.parametrize("channels", [2, 4])
-def test_trilinear_fwd_matches_plain(cuda, dtype, n, channels):
-    cfg = ModelConfig(n_levels=8, n_channels=channels, log2_table_size=14)
-    haloed, page_idx, lf = _inputs(cfg, n, dtype, cuda)
+@pytest.mark.parametrize("n,levels", SHAPES)
+@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+def test_trilinear_fwd_matches_plain(cuda, dtype, n, levels, channels):
+    cfg = ModelConfig(n_levels=levels, n_channels=channels,
+                      log2_table_size=14)
+    haloed, page_idx, lf = _inputs(cfg, n, dtype, cuda, seed=n + levels)
     before = trilinear.trilinear_fwd.launches
     out = trilinear.trilinear_fwd(haloed, page_idx, lf)
     torch.cuda.synchronize()
     assert trilinear.trilinear_fwd.launches == before + 1
     ref = trilinear.trilinear_fwd_ref(haloed, page_idx, lf, chunk=4096)
-    assert out.shape == ref.shape == (n, 8 * channels)
+    assert out.shape == ref.shape == (n, levels * channels)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     # and the plain version on the CPU gives the same numbers
     cpu = trilinear.trilinear_fwd(haloed.cpu(), page_idx.cpu(), lf.cpu())
@@ -81,6 +100,37 @@ def test_trilinear_fwd_rejects_bad_inputs(cuda):
                                 lf[:, ::2].contiguous())
     with pytest.raises(ValueError):
         trilinear.trilinear_fwd(haloed, page_idx.cpu(), lf)
+    # L*C beyond the block's shared tile
+    wide = ModelConfig(n_levels=64, n_channels=8, log2_table_size=12)
+    haloed, page_idx, lf = _inputs(wide, 10, torch.float32, cuda)
+    with pytest.raises(ValueError, match="L\\*C"):
+        trilinear.trilinear_fwd(haloed, page_idx, lf)
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that starts one element into a larger buffer, so
+    its data is not 8 B-aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_unaligned_inputs(cuda):
+    """Views whose data are not aligned for the kernels' vector loads
+    give the same results."""
+    cfg = ModelConfig(n_levels=8, n_channels=4, log2_table_size=12)
+    haloed, page_idx, lf, grad = _frac_inputs(cfg, 1000, torch.bfloat16,
+                                              cuda)
+    args = [_shifted(t) for t in (haloed, page_idx, lf, grad)]
+    assert all(t.data_ptr() % 8 for t in args)
+    torch.testing.assert_close(
+        trilinear.trilinear_fwd(*args[:3]),
+        trilinear.trilinear_fwd(haloed, page_idx, lf), rtol=0, atol=0)
+    torch.testing.assert_close(
+        trilinear.trilinear_bwd_frac(*args),
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad),
+        rtol=0, atol=0)
 
 
 def _bwd_inputs(cfg, n, device, seed=0, skew=False):
@@ -169,16 +219,18 @@ def _frac_inputs(cfg, n, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 1001, 65537])
-@pytest.mark.parametrize("channels", [2, 4])
-def test_trilinear_bwd_frac_matches_plain(cuda, dtype, n, channels):
-    cfg = ModelConfig(n_levels=8, n_channels=channels, log2_table_size=14)
-    haloed, page_idx, lf, grad = _frac_inputs(cfg, n, dtype, cuda)
+@pytest.mark.parametrize("n,levels", SHAPES)
+@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+def test_trilinear_bwd_frac_matches_plain(cuda, dtype, n, levels, channels):
+    cfg = ModelConfig(n_levels=levels, n_channels=channels,
+                      log2_table_size=14)
+    haloed, page_idx, lf, grad = _frac_inputs(cfg, n, dtype, cuda,
+                                              seed=n + levels)
     before = trilinear.trilinear_bwd_frac.launches
     out = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
     torch.cuda.synchronize()
     assert trilinear.trilinear_bwd_frac.launches == before + 1
-    assert out.shape == (8, n, 6) and out.dtype == torch.float32
+    assert out.shape == (levels, n, 6) and out.dtype == torch.float32
     assert float(out[..., :3].abs().max()) == 0.0
     ref = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, grad,
                                            chunk=4096)
@@ -209,6 +261,56 @@ def test_trilinear_bwd_frac_rejects_bad_inputs(cuda):
                                      grad.t().contiguous().t())
     with pytest.raises(ValueError):
         trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad.cpu())
+    wide = ModelConfig(n_levels=64, n_channels=8, log2_table_size=12)
+    haloed, page_idx, lf, grad = _frac_inputs(wide, 10, torch.float32, cuda)
+    with pytest.raises(ValueError, match="L\\*C"):
+        trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
+
+
+def _check_frac(haloed, page_idx, lf, grad):
+    """trilinear_bwd_frac against its plain version at 1e-5 of each
+    output's term magnitudes, zero local columns, two launches equal."""
+    out = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
+    again = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad)
+    torch.cuda.synchronize()
+    assert out.shape == (*page_idx.shape, 6)
+    assert torch.equal(out, again)
+    assert float(out[..., :3].abs().max()) == 0.0
+    ref = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, grad)
+    mag = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, grad,
+                                           magnitudes=True)
+    assert bool(((out - ref).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+@pytest.fixture(scope="module")
+def in_situ(cuda):
+    """``chip_smoke.in_situ_inputs``: the page indices and fractions of
+    one full-frame render at the serve pose ("frame") and of one mode-0
+    particle render ("particles") at the full ``Config()`` width."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.in_situ_inputs(Config(), 0, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["frame", "particles"])
+def test_trilinear_fwd_in_situ(in_situ, name, dtype):
+    haloed, page_idx, lf = in_situ[name]
+    haloed = haloed.to(dtype)
+    out = trilinear.trilinear_fwd(haloed, page_idx, lf)
+    torch.cuda.synchronize()
+    ref = trilinear.trilinear_fwd_ref(haloed, page_idx, lf)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trilinear_bwd_frac_in_situ(in_situ, dtype):
+    haloed, page_idx, lf = in_situ["frame"]
+    grad = torch.randn((page_idx.shape[1], 32), device=lf.device,
+                       generator=torch.Generator(lf.device).manual_seed(5))
+    _check_frac(haloed.to(dtype), page_idx, lf, grad)
 
 
 def test_encode_point_gradient_on_the_card(cuda):
