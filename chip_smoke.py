@@ -12,7 +12,10 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    and timed with CUDA events: ``trilinear_fwd`` on the inputs of one
    mode-0 localize request, ``trilinear_bwd`` on the 4.19 M (point,
    level) pairs of one training step at ``bench.py``'s operating point
-   (with a seeded O(1) cotangent), ``trilinear_bwd_frac`` on the 13.0 M
+   and on as many uniform random pairs (each with a seeded O(1)
+   cotangent; the zero-fill, the stable sort and the two passes also
+   timed alone, and an atomic ``index_add_`` scatter of the corner
+   values beside them), ``trilinear_bwd_frac`` on the 13.0 M
    pairs of one mode-1 step (106x240 rays x 64 samples x 8 levels, a
    seeded O(1) cotangent); the two backward kernels also for two
    launches that must be bitwise equal. ``trilinear_fwd`` and
@@ -346,14 +349,40 @@ def trilinear_bwd_bound_ms(g, page_idx, local_frac, n_pages: int,
     return max(io_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
 
 
-def bwd_kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
-    """trilinear_bwd at one bench-point step's 4.19 M pairs. Tolerance
-    1e-5 x the sum of each cell's term magnitudes in f32 (the same f32
-    terms summed in another order; the kernel's hat-form weights differ
-    from the plain one-hot form by an ulp), plus 2^-8 of the value in
-    bf16 (one rounding of the sum)."""
-    g, page_idx, lf, meta = train_step_inputs(cfg, seed, dev)
-    n_pages = meta.total_pages
+def corner_scatter_inputs(g, page_idx, local_frac):
+    """The page gradient as a scatter: each (point, level) entry's 8
+    corner contributions g * w [8M, C] f32 and their rows page*128 + slot
+    of a [P*128, C] view of the table (the product form of the weights,
+    an ulp from the kernel's hat form)."""
+    n_levels, n = page_idx.shape
+    c = g.shape[1] // n_levels
+    gl = g.view(n, n_levels, c).permute(1, 0, 2)             # [L, N, C]
+    local = local_frac[..., :3].long()
+    frac = local_frac[..., 3:]
+    vals, rows = [], []
+    for k in range(8):
+        d = (k >> 2, (k >> 1) & 1, k & 1)
+        w = torch.ones_like(frac[..., 0])
+        for a in range(3):
+            w = w * (frac[..., a] if d[a] else 1.0 - frac[..., a])
+        vals.append((gl * w[..., None]).reshape(-1, c))
+        rows.append((page_idx.long() * hash_paged.ROW_PAD
+                     + 25 * (local[..., 0] + d[0]) + 5 * (local[..., 1] + d[1])
+                     + (local[..., 2] + d[2])).reshape(-1))
+    return torch.cat(vals), torch.cat(rows)
+
+
+def bwd_set(name: str, g, page_idx, lf, n_pages: int, flush: torch.Tensor
+            ) -> dict:
+    """trilinear_bwd on one input set: f32 and bf16 against the plain
+    version, two launches bitwise equal; the sorted order's runs; then
+    timed L2 flushed: the whole wrapper, its parts (zero-fill, stable
+    sort, the two passes alone), back to back, and the atomic scatter
+    ``index_add_`` of prebuilt corner values beside the bound.
+    Tolerance 1e-5 x the sum of each cell's term magnitudes in f32 (the
+    same f32 terms summed in another order; the kernel's hat-form weights
+    differ from the plain one-hot form by an ulp), plus 2^-8 of the value
+    in bf16 (one rounding of the sum)."""
     ref = trilinear.trilinear_bwd_ref(g, page_idx, lf, n_pages)
     mag = trilinear.trilinear_bwd_ref(g.abs(), page_idx, lf, n_pages)
     errs = {}
@@ -362,45 +391,85 @@ def bwd_kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
         again = trilinear.trilinear_bwd(g, page_idx, lf, n_pages, dtype)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            raise RuntimeError(f"trilinear_bwd {dtype}: two launches on "
-                               f"the same inputs differ")
+            raise RuntimeError(f"trilinear_bwd {name} {dtype}: two launches "
+                               f"on the same inputs differ")
         err = (out.float() - ref).abs()
         tol = KERNEL_TOL * mag + (2.0 ** -8 * ref.abs()
                                   if dtype == torch.bfloat16 else 0.0)
         ratio = float((err / (tol + 1e-30)).max())
         errs[str(dtype)] = float(err.max())
-        log(f"trilinear_bwd {dtype} M={page_idx.numel()}: max |kernel - "
-            f"plain| = {errs[str(dtype)]:.3e}, max err/tol = {ratio:.3f}; "
-            f"two launches bitwise equal")
+        log(f"trilinear_bwd {name} {dtype} M={page_idx.numel()}: max "
+            f"|kernel - plain| = {errs[str(dtype)]:.3e}, max err/tol = "
+            f"{ratio:.3f}; two launches bitwise equal")
         if not (np.isfinite(ratio) and ratio <= 1.0):
-            raise RuntimeError(f"trilinear_bwd {dtype} disagrees with its "
-                               f"plain version: err/tol {ratio}")
-    counts = torch.bincount(page_idx.reshape(-1).long(),
-                            minlength=n_pages)
-    log(f"  entries per touched page: max {int(counts.max())}, pages "
-        f"touched {int((counts > 0).sum())} of {n_pages}")
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms = cuda_ms(lambda: trilinear.trilinear_bwd(
-        g, page_idx, lf, n_pages, torch.bfloat16), flush=flush)
-    warm_ms = cuda_ms(lambda: trilinear.trilinear_bwd(
-        g, page_idx, lf, n_pages, torch.bfloat16))
-    keys = page_idx.reshape(-1)
-    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), flush=flush)
-    plain_ms = cuda_ms(lambda: trilinear.trilinear_bwd_ref(
-        g, page_idx, lf, n_pages, torch.bfloat16), reps=3, flush=flush)
+            raise RuntimeError(f"trilinear_bwd {name} {dtype} disagrees with "
+                               f"its plain version: err/tol {ratio}")
+    del ref, mag, out, again, err, tol
+    counts = torch.bincount(page_idx.reshape(-1).long(), minlength=n_pages)
+    runs, max_run = int((counts > 0).sum()), int(counts.max())
+    log(f"  {name}: {runs} runs (pages touched of {n_pages}), largest run "
+        f"{max_run} pairs, mean {page_idx.numel() / runs:.1f} pairs")
+    bf16 = torch.bfloat16
+    width = g.shape[1] // page_idx.shape[0] * hash_paged.ROW_PAD
+    ms = cuda_ms(lambda: trilinear.trilinear_bwd(g, page_idx, lf, n_pages,
+                                                 bf16), flush=flush)
+    warm_ms = cuda_ms(lambda: trilinear.trilinear_bwd(g, page_idx, lf,
+                                                      n_pages, bf16))
+    fill_ms = cuda_ms(lambda: torch.zeros((n_pages, width), dtype=bf16,
+                                          device=g.device), flush=flush)
+    sort_ms = cuda_ms(lambda: trilinear._bwd_sort(page_idx, n_pages),
+                      flush=flush)
+    skey, perm = trilinear._bwd_sort(page_idx, n_pages)
+    out = trilinear.trilinear_bwd(g, page_idx, lf, n_pages, bf16)
+    passes_ms = cuda_ms(lambda: trilinear._bwd_passes(g, lf, skey, perm, out),
+                        flush=flush)
+    del skey, perm, out
+    vals, rows = corner_scatter_inputs(g, page_idx, lf)
+    table = torch.zeros((n_pages * hash_paged.ROW_PAD, vals.shape[1]),
+                        dtype=torch.float32, device=g.device)
+    scatter_ms = cuda_ms(lambda: table.index_add_(0, rows, vals), flush=flush)
+    del vals, rows, table
     bound_ms = trilinear_bwd_bound_ms(g, page_idx, lf, n_pages, 2)
-    log(f"trilinear_bwd bf16: {ms:.4f} ms (L2 flushed; the stable sort "
-        f"alone {sort_ms:.4f} ms), {warm_ms:.4f} ms (back to back), plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    log(f"trilinear_bwd {name} bf16: whole wrapper {ms:.4f} ms (L2 "
+        f"flushed), {warm_ms:.4f} ms (back to back); alone, L2 flushed: "
+        f"zero-fill {fill_ms:.4f}, stable sort {sort_ms:.4f}, two passes "
+        f"{passes_ms:.4f} ms; bound {bound_ms:.4f} ms; atomic scatter "
+        f"(index_add_ of prebuilt corner values, non-deterministic) "
+        f"{scatter_ms:.4f} ms")
+    return {"pairs": page_idx.numel(), "max_abs_err": errs[str(torch.float32)],
+            "max_abs_err_bf16": errs[str(bf16)], "ms": ms, "warm_ms": warm_ms,
+            "fill_ms": fill_ms, "sort_ms": sort_ms, "passes_ms": passes_ms,
+            "atomic_scatter_ms": scatter_ms, "bound_ms": bound_ms,
+            "runs": runs, "max_run": max_run}
+
+
+def bwd_kernel_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
+    """trilinear_bwd on one bench-point training step's 4.19 M pairs
+    (the main numbers; the plain version is timed there), then on as many
+    uniform random pairs (the worst case for the gathers), each with a
+    seeded O(1) cotangent."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    g, page_idx, lf, meta = train_step_inputs(cfg, seed, dev)
+    n_pages = meta.total_pages
+    res = bwd_set("train step", g, page_idx, lf, n_pages, flush)
+    res["plain_ms"] = cuda_ms(lambda: trilinear.trilinear_bwd_ref(
+        g, page_idx, lf, n_pages, torch.bfloat16), reps=3, flush=flush)
+    log(f"trilinear_bwd plain (train step): {res['plain_ms']:.3f} ms")
+    n = page_idx.shape[1]
+    del g, page_idx, lf
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    pts = torch.rand((n, 3), generator=gen, device=dev) * 4 - 2
+    page_idx, local, frac = hash_paged.page_indices(pts, meta)
+    g = torch.randn((n, meta.n_levels * meta.n_channels), generator=gen,
+                    device=dev)
+    random = bwd_set("random", g, page_idx,
+                     torch.cat([local.float(), frac], dim=-1), n_pages, flush)
     return {"name": "trilinear_bwd", "route": "cuda",
             "source": "f2nerf_tpu_torch/kernels/csrc/trilinear_bwd.cu",
             "replaces": "f2nerf_tpu/kernels/trilinear.py:172 "
                         "(contract_bwd_rows)",
-            "launches": None, "max_abs_err": errs[str(torch.float32)],
-            "max_abs_err_bf16": errs[str(torch.bfloat16)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "sort_ms": sort_ms,
-            "warm_ms": warm_ms}
+            "launches": None, "bound_by": "bytes", "library_ms": None, **res,
+            "sets": {"random": random}}
 
 
 def trilinear_bwd_frac_bound_ms(haloed, page_idx, local_frac) -> float:

@@ -200,10 +200,13 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
     cotangent g [N, L*C] f32 of ``trilinear_fwd``'s output and the same
     page_idx [L, N] int32 / local_frac [L, N, 6] f32 it was given.
 
-    On the card: a stable sort of the page keys (glue), then the two
-    passes of ``csrc/trilinear_bwd.cu``. Two calls on the same inputs
-    give bitwise-equal results. ``chunk`` bounds memory of the plain
-    version only.
+    On the card: a zero-filled output, a stable sort of the page keys
+    (glue, ``_bwd_sort``), then the two passes of
+    ``csrc/trilinear_bwd.cu`` (``_bwd_passes``): one warp per tile of 256
+    sorted entries adds each entry's 8 corners in entry order, and a
+    merge adds the runs that cross tile edges in tile order. No float
+    atomics: two calls on the same inputs give bitwise-equal results.
+    ``chunk`` bounds memory of the plain version only.
     """
     _check_points(page_idx, local_frac)
     n_levels, n = page_idx.shape
@@ -225,8 +228,36 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
     if g.dtype != torch.float32:
         raise ValueError(f"g must be float32, got {g.dtype}")
     _check_cuda(g=g, page_idx=page_idx, local_frac=local_frac)
+    d_haloed = torch.zeros((n_pages, c * ROW_PAD), dtype=dtype,
+                           device=g.device)
+    if n * n_levels == 0:
+        return d_haloed
+    skey, perm = _bwd_sort(page_idx, n_pages)
+    _bwd_passes(g, local_frac, skey, perm, d_haloed)
+    return d_haloed
+
+
+def _bwd_sort(page_idx: torch.Tensor, n_pages: int):
+    """Glue of ``trilinear_bwd``: the page keys of the L*N entries
+    sorted stably, so the entries of each page form one run of the sorted
+    order in ascending entry index; keys clamped as the forward clamps
+    its gather. Returns (skey int32, perm int64)."""
+    keys = page_idx.reshape(-1).clamp(0, n_pages - 1)
+    return torch.sort(keys, stable=True)
+
+
+def _bwd_passes(g: torch.Tensor, local_frac: torch.Tensor,
+                skey: torch.Tensor, perm: torch.Tensor,
+                d_haloed: torch.Tensor) -> None:
+    """The two passes of ``csrc/trilinear_bwd.cu`` into ``d_haloed``
+    [P, 128*C] (bf16 or f32), which holds zeros where no entry falls;
+    inputs checked by ``trilinear_bwd``."""
     from f2nerf_tpu_torch.kernels.build import load_library
 
+    n_levels, n = local_frac.shape[:2]
+    c = d_haloed.shape[1] // ROW_PAD
+    # the kernel reads g slices and local_frac with vector loads
+    g, local_frac = _aligned(g, 16), _aligned(local_frac, 8)
     lib = load_library("trilinear_bwd")
     fn = lib.trilinear_bwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -237,29 +268,18 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
     lib.trilinear_bwd_tile_size.argtypes = []
     lib.trilinear_bwd_tile_size.restype = ctypes.c_int
     tile = lib.trilinear_bwd_tile_size()
-    d_haloed = torch.zeros((n_pages, c * ROW_PAD), dtype=dtype,
-                           device=g.device)
-    m = n * n_levels
-    if m == 0:
-        return d_haloed
-    # glue: the entries of each page become one run of the sorted order,
-    # in ascending entry index (stable); keys clamped as the forward
-    # clamps its gather
-    keys = page_idx.reshape(m).clamp(0, n_pages - 1)
-    skey, perm = torch.sort(keys, stable=True)
-    partial = torch.empty((-(-m // tile), 2, c * ROW_PAD),
+    partial = torch.empty((-(-skey.numel() // tile), 2, c * ROW_PAD),
                           dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(g.data_ptr(), local_frac.data_ptr(), skey.data_ptr(),
                 perm.data_ptr(), d_haloed.data_ptr(),
-                int(dtype == torch.bfloat16), partial.data_ptr(), n,
-                n_levels, c, stream)
+                int(d_haloed.dtype == torch.bfloat16), partial.data_ptr(),
+                n, n_levels, c, stream)
     if rc != 0:
         raise RuntimeError(f"trilinear_bwd kernel launch failed: CUDA "
                            f"error {rc}")
     trilinear_bwd.launches += 1
-    return d_haloed
 
 
 def trilinear_bwd_frac_ref(haloed: torch.Tensor, page_idx: torch.Tensor,

@@ -269,7 +269,8 @@ def _grad_inputs(meta, n, seed):
     return pages, pts, g
 
 
-@pytest.mark.parametrize("name", ["tiny", "mixed"])
+@pytest.mark.parametrize("name", ["tiny", "mixed", "one_channel",
+                                  "eight_channels"])
 def test_encode_backward_fp32(name):
     jm, tm = _metas(name)
     pages, pts, g = _grad_inputs(jm, 3000, 20)
@@ -287,23 +288,33 @@ def test_encode_backward_fp32(name):
                                atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize("name", ["tiny", "mixed"])
-def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
-    jm, tm = _metas(name)
-    n = 2048                    # a multiple of the Pallas TILE (1024)
-    pages, pts, g = _grad_inputs(jm, n, 21)
+def _jax_page_gradient(pts, g, jm, dtype):
+    """The JAX package's page gradient [P, C*128] (channel-major) in f32:
+    ``contract_bwd_rows`` per level (in interpret mode under
+    ``pallas_interpret``), its rows in ``dtype``, summed into pages by a
+    ``segment_sum`` in f32."""
     pidx, local, frac = jhp._page_indices_lm(jnp.asarray(pts), jm)
     c = jm.n_channels
     ref = jnp.zeros((jm.total_pages, c * jhp.ROW_PAD), jnp.float32)
     for lvl in range(jm.n_levels):
         d_rows = jtri.contract_bwd_rows(
             local[lvl][:, None, :], frac[lvl][:, None, :],
-            jnp.asarray(g[:, lvl * c:(lvl + 1) * c]), 1, c, jnp.bfloat16)
-        assert d_rows.dtype == jnp.bfloat16
+            jnp.asarray(g[:, lvl * c:(lvl + 1) * c]), 1, c, dtype)
+        assert d_rows.dtype == dtype
         ref = ref + jax.ops.segment_sum(d_rows.astype(jnp.float32),
                                         pidx[lvl],
                                         num_segments=jm.total_pages)
-    ref = np.asarray(ref)
+    return np.asarray(ref)
+
+
+@pytest.mark.parametrize("name", ["tiny", "mixed", "one_channel",
+                                  "eight_channels"])
+def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
+    jm, tm = _metas(name)
+    n = 2048                    # a multiple of the Pallas TILE (1024)
+    pages, pts, g = _grad_inputs(jm, n, 21)
+    c = jm.n_channels
+    ref = _jax_page_gradient(pts, g, jm, jnp.bfloat16)
     tpidx, tlocal, tfrac = thp.page_indices(torch.from_numpy(pts), tm)
     lf = torch.cat([tlocal.float(), tfrac], dim=-1)
     out = ttri.trilinear_bwd(torch.from_numpy(g), tpidx, lf,
@@ -327,6 +338,35 @@ def test_page_gradient_bf16_vs_pallas(name, pallas_interpret):
     (feat * torch.from_numpy(g)).sum().backward()
     err = np.abs(tp.grad.numpy() - np.asarray(ref_pages))
     assert np.all(err <= 2.0 ** -7 * np.asarray(mag_pages) + 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_page_gradient_skewed_vs_pallas(dtype, pallas_interpret):
+    """Skewed points (three quarters in one finest-level cell): every
+    level holds a page run of over 1,500 entries, several times the CUDA
+    kernel's tile, against ``contract_bwd_rows`` in interpret mode plus a
+    ``segment_sum``. f32: 1e-5 x each cell's term magnitudes (the same
+    f32 products summed in another order); bf16: 2^-7 of them, as in
+    ``test_page_gradient_bf16_vs_pallas``."""
+    jm, tm = _metas("mixed")
+    n = 2048
+    _, pts, g = _grad_inputs(jm, n, 28)
+    pts[: 3 * n // 4] = pts[: 3 * n // 4] * 1e-4 + 0.01
+    tpidx, tlocal, tfrac = thp.page_indices(torch.from_numpy(pts), tm)
+    runs = [int(torch.bincount(tpidx[lvl].long()).max())
+            for lvl in range(jm.n_levels)]
+    assert min(runs) >= 3 * n // 4
+    ref = _jax_page_gradient(pts, g, jm, getattr(jnp, dtype))
+    lf = torch.cat([tlocal.float(), tfrac], dim=-1)
+    out = ttri.trilinear_bwd(torch.from_numpy(g), tpidx, lf,
+                             tm.total_pages, getattr(torch, dtype))
+    c = jm.n_channels
+    mag = _channel_major(ttri.trilinear_bwd_ref(
+        torch.from_numpy(np.abs(g)), tpidx, lf, tm.total_pages), c)
+    assert float(mag.max()) > 100.0
+    rel = 1e-5 if dtype == "float32" else 2.0 ** -7
+    err = np.abs(_channel_major(out.float(), c) - ref)
+    assert np.all(err <= rel * mag + 1e-30)
 
 
 def _point_grad(pts, pages, meta, g, dtype, chunk=65536, pages_grad=False):

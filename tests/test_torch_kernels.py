@@ -25,10 +25,16 @@ shape: a block is 32 points x all L levels, warp = level (levels stride
 over at most 8 warps), and the block's [32, L*C] slice of feat / g
 moves through shared memory; so N runs ragged around 32 at L = 8, L
 runs below, at and above 8 at one N, and every C and table type is
-taken at each. The in-situ cases run the kernels on the page indices
+taken at each. ``trilinear_bwd`` gives each tile of 256 page-sorted
+entries to one warp (lane = corner x channel: 8, 16 or 32 lanes at
+C = 1, 2, 4, two channels a lane at C = 8) and merges the runs that
+cross tile edges, so its shapes put M = N*L at the tile edges, give one
+entry, long runs and one run through every tile, at every C and L in
+{1, 3, 8, 16}. The in-situ cases run the kernels on the page indices
 of real renders at the full ``Config()`` width
 (``chip_smoke.in_situ_inputs``), whose rays make neighbouring lanes
-gather from neighbouring cells.
+gather from neighbouring cells, and ``trilinear_bwd`` on one training
+step's (``chip_smoke.train_step_inputs``).
 """
 
 import importlib.util
@@ -131,42 +137,68 @@ def test_unaligned_inputs(cuda):
         trilinear.trilinear_bwd_frac(*args),
         trilinear.trilinear_bwd_frac(haloed, page_idx, lf, grad),
         rtol=0, atol=0)
+    n_pages = haloed.shape[0]
+    assert torch.equal(
+        trilinear.trilinear_bwd(args[3], *args[1:3], n_pages),
+        trilinear.trilinear_bwd(grad, page_idx, lf, n_pages))
 
 
-def _bwd_inputs(cfg, n, device, seed=0, skew=False):
+def _bwd_inputs(cfg, n, device, seed=0, kind="uniform"):
     meta = hash_field.paged_meta(cfg)
     g = torch.Generator(device=device).manual_seed(seed)
     pts = torch.rand((n, 3), generator=g, device=device) * 4 - 2
-    if skew:     # most points in one coarse cell: long page runs
+    if kind == "skew":     # most points in one coarse cell: long page runs
         pts[: n // 2] = pts[: n // 2] * 1e-3 + 0.01
     page_idx, local, frac = hash_paged.page_indices(pts, meta)
+    if kind == "one_page":  # one run through every tile
+        page_idx.fill_(meta.total_pages // 2)
     lf = torch.cat([local.float(), frac], dim=-1)
     grad = torch.randn((n, cfg.n_levels * cfg.n_channels), generator=g,
                        device=device)
     return grad, page_idx, lf, meta.total_pages
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,skew", [(1, False), (1001, False),
-                                    (65537, False), (65537, True)])
-@pytest.mark.parametrize("channels", [2, 4])
-def test_trilinear_bwd_matches_plain(cuda, dtype, n, skew, channels):
-    cfg = ModelConfig(n_levels=8, n_channels=channels, log2_table_size=14)
-    grad, page_idx, lf, n_pages = _bwd_inputs(cfg, n, cuda, skew=skew)
+def _check_bwd(grad, page_idx, lf, n_pages, dtype, chunk=4096):
+    """trilinear_bwd against its plain version (1e-5 x each cell's term
+    magnitudes, plus 2^-8 of the value in bf16), one launch counted, two
+    launches bitwise equal; returns the output and the tolerance."""
     before = trilinear.trilinear_bwd.launches
     out = trilinear.trilinear_bwd(grad, page_idx, lf, n_pages, dtype)
     torch.cuda.synchronize()
     assert trilinear.trilinear_bwd.launches == before + 1
-    assert out.dtype == dtype and out.shape == (n_pages, channels * 128)
+    c = grad.shape[1] // page_idx.shape[0]
+    assert out.dtype == dtype and out.shape == (n_pages, c * 128)
     ref = trilinear.trilinear_bwd_ref(grad, page_idx, lf, n_pages,
-                                      chunk=4096)
+                                      chunk=chunk)
     mag = trilinear.trilinear_bwd_ref(grad.abs(), page_idx, lf, n_pages,
-                                      chunk=4096)
+                                      chunk=chunk)
     tol = 1e-5 * mag + (2.0 ** -8 * ref.abs() if dtype == torch.bfloat16
                         else 0.0)
     assert bool(((out.float() - ref).abs() <= tol + 1e-30).all())
     again = trilinear.trilinear_bwd(grad, page_idx, lf, n_pages, dtype)
     assert torch.equal(out, again)
+    return out, tol
+
+
+# (N, L, points): M = N*L at the 256-entry tile edges (255, 256, 513),
+# one entry (a run of length 1), L in {1, 3, 8, 16}, long runs (skew) and
+# one page for every entry (one run through all 64 tiles)
+BWD_SHAPES = [(1, 1, "uniform"), (85, 3, "uniform"), (32, 8, "uniform"),
+              (171, 3, "uniform"), (1001, 1, "uniform"),
+              (1001, 8, "uniform"), (4097, 16, "uniform"),
+              (65537, 8, "uniform"), (65537, 8, "skew"),
+              (2048, 8, "one_page")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,levels,kind", BWD_SHAPES)
+@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+def test_trilinear_bwd_matches_plain(cuda, dtype, n, levels, kind, channels):
+    cfg = ModelConfig(n_levels=levels, n_channels=channels,
+                      log2_table_size=14)
+    grad, page_idx, lf, n_pages = _bwd_inputs(cfg, n, cuda, seed=n + levels,
+                                              kind=kind)
+    out, tol = _check_bwd(grad, page_idx, lf, n_pages, dtype)
     # and the plain version on the CPU gives the same numbers
     cpu = trilinear.trilinear_bwd(grad.cpu(), page_idx.cpu(), lf.cpu(),
                                   n_pages)
@@ -283,15 +315,31 @@ def _check_frac(haloed, page_idx, lf, grad):
 
 
 @pytest.fixture(scope="module")
-def in_situ(cuda):
+def chip_smoke(cuda):
+    """``chip_smoke.py``, loaded by path."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def in_situ(chip_smoke, cuda):
     """``chip_smoke.in_situ_inputs``: the page indices and fractions of
     one full-frame render at the serve pose ("frame") and of one mode-0
     particle render ("particles") at the full ``Config()`` width."""
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     return chip_smoke.in_situ_inputs(Config(), 0, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trilinear_bwd_in_situ(chip_smoke, cuda, dtype):
+    """The 4.19 M (point, level) pairs of one training step at
+    ``bench.py``'s operating point (``chip_smoke.train_step_inputs``),
+    with its seeded O(1) cotangent."""
+    cfg = chip_smoke.train_cfg(chip_smoke.TRAIN_RAYS)
+    grad, page_idx, lf, meta = chip_smoke.train_step_inputs(cfg, 0, cuda)
+    _check_bwd(grad, page_idx, lf, meta.total_pages, dtype, chunk=65536)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
