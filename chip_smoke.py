@@ -9,7 +9,8 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    CUDA kernel under f2nerf_tpu_torch/kernels/csrc (one nvcc per
    source, all started together).
 2. Kernels at full width, each held against its plain PyTorch version
-   and timed with CUDA events: ``trilinear_fwd`` on the inputs of one
+   and timed with CUDA events (and each once at C = 3, which the wrappers
+   run zero-padded to C = 4, at a small width): ``trilinear_fwd`` on the inputs of one
    mode-0 localize request, ``trilinear_bwd`` on the 4.19 M (point,
    level) pairs of one training step at ``bench.py``'s operating point
    and on as many uniform random pairs (each with a seeded O(1)
@@ -39,11 +40,27 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    request at its defaults (3 search rounds of 128 particles, up to 30
    refinement steps with backtracking); request times, peak memory and
    one profiled mode-1 request.
-   In phases 3-5 the kernels' launch counts are set to 0 just before and
-   read just after; every kernel of the path must have launched, and the
-   kernels of the other paths must not (a frozen field pays for no page
-   gradient, a training step for no point gradient).
-6. End-to-end checks: the VALIDATE renderer on 512 rays, two train
+6. Run directory, with ``yaml`` and ``PIL`` unimportable throughout
+   (the card's machine has neither): the port's ``make_textured_dataset``
+   at its defaults (32 views of 128x128, seed ``--seed``) written with
+   ``save_dataset``; ``python -m f2nerf_tpu_torch.apps.main train`` in
+   process on ``Config.quality(end_iter=600)`` (the full-width model
+   ``scripts/quality_run.py`` trains: 4,096 rays per step, auto
+   ``sample_near``; a report every 50 steps, checkpoints at 300 and 600,
+   a vis PNG at 600); a fresh ``Trainer`` resumed from the run directory
+   equal to the last checkpoint bitwise; a second ``train`` call that
+   trains nothing; ``test`` (``summary.tsv``, PSNR / SSIM of its renders);
+   ``Localizer.from_checkpoint`` on the run directory (every training
+   view rendered at full resolution for PSNR / SSIM) behind a
+   ``LocalizerService``: one mode-0 and one mode-1 request on a training
+   view whose pose is moved 2 cm; then the loop's steady step against the
+   bare train step at the same 4,096 rays, in turns.
+   In phases 3-6 the kernels' launch counts are set to 0 just before and
+   read just after each path (in phase 6: train, test, mode 0, mode 1);
+   every kernel of the path must have launched, and the kernels of the
+   other paths must not (a frozen field pays for no page gradient, a
+   training step for no point gradient).
+7. End-to-end checks: the VALIDATE renderer on 512 rays, two train
    steps on 512 rays at full width, and the pose loss and gradient on a
    17x40 frame at full width, each on the card and on the CPU (plain
    versions); two runs of a step on the card give bitwise-equal
@@ -58,27 +75,38 @@ CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib.abc
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
 import numpy as np
 import torch
 
+from f2nerf_tpu_torch.apps import main as cli
 from f2nerf_tpu_torch.apps.serve import LocalizerService
 from f2nerf_tpu_torch.core.cameras import rays_from_pose
-from f2nerf_tpu_torch.core.config import Config
+from f2nerf_tpu_torch.core.config import Config, ModelConfig
+from f2nerf_tpu_torch.data.dataset import load_dataset, save_dataset
+from f2nerf_tpu_torch.data.synthetic import make_textured_dataset
 from f2nerf_tpu_torch.kernels import build, trilinear
 from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.ops import hash_paged
 from f2nerf_tpu_torch.ops.contraction import contract
+from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
+from f2nerf_tpu_torch.train.loop import Trainer
 from f2nerf_tpu_torch.train.optim import make_optimizer
 from f2nerf_tpu_torch.train.step import (StepNoise, draw_noise,
                                          make_train_step)
+from f2nerf_tpu_torch.utils.image_io import read_image
+from f2nerf_tpu_torch.utils.metrics import psnr, ssim
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -94,6 +122,11 @@ TRAIN_RAYS, N_IMAGES, CAM_HW, CAM_F = 8192, 8, 256, 200.0
 STEP0, TRAIN_STEPS, STEADY_FROM = 3072, 24, 2
 CHECK_RAYS = 512
 ALL_KERNELS = ("trilinear_fwd", "trilinear_bwd", "trilinear_bwd_frac")
+# the run-directory phase: Config.quality trained for RUN_STEPS steps
+RUN_STEPS, RUN_REPORT = 600, 50
+LOOP_STEPS = 40              # steps per timing window, loop vs bare step
+SERVE_VIEW = 5               # the training view the requests localize
+POSE_SHIFT = (0.012, -0.008, 0.014)   # world units (2.0 cm)
 
 
 def zero_launches() -> None:
@@ -915,6 +948,284 @@ def pose_check_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
             "cpu_shift_grad_rel": shift_rel, "bitwise_equal": bitwise}
 
 
+def narrow_channels_check(seed: int, dev: torch.device) -> dict:
+    """Each wrapper at C = 3 (the kernels are built for 1, 2, 4 and 8;
+    the wrappers zero-pad to 4 and slice), 8 levels of a 2^14 table,
+    65,536 uniform random points, f32 and bf16 tables, against its plain
+    version with the tolerances of the full-width checks."""
+    cfg = ModelConfig(n_levels=8, n_channels=3, log2_table_size=14)
+    meta = hash_field.paged_meta(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    pages = torch.rand((meta.total_pages, 3, 4, 4, 4), generator=g,
+                       device=dev) * 2 - 1
+    pts = torch.rand((65536, 3), generator=g, device=dev) * 4 - 2
+    page_idx, local, frac = hash_paged.page_indices(pts, meta)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    cot = torch.randn((65536, 24), generator=g, device=dev)
+    errs = {name: 0.0 for name in ALL_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        haloed = hash_paged.halo_pages(pages, meta).to(dtype)
+        out = trilinear.trilinear_fwd(haloed, page_idx, lf)
+        ref = trilinear.trilinear_fwd_ref(haloed, page_idx, lf)
+        err = float((out - ref).abs().max())
+        if not err <= KERNEL_TOL:
+            raise RuntimeError(f"trilinear_fwd at C = 3 {dtype}: {err}")
+        errs["trilinear_fwd"] = max(errs["trilinear_fwd"], err)
+        out = trilinear.trilinear_bwd_frac(haloed, page_idx, lf, cot)
+        ref = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, cot)
+        mag = trilinear.trilinear_bwd_frac_ref(haloed, page_idx, lf, cot,
+                                               magnitudes=True)
+        if not bool(((out - ref).abs() <= KERNEL_TOL * mag + 1e-30).all()):
+            raise RuntimeError(f"trilinear_bwd_frac at C = 3 {dtype} "
+                               f"disagrees with its plain version")
+        errs["trilinear_bwd_frac"] = max(errs["trilinear_bwd_frac"],
+                                         float((out - ref).abs().max()))
+        out = trilinear.trilinear_bwd(cot, page_idx, lf, meta.total_pages,
+                                      dtype)
+        ref = trilinear.trilinear_bwd_ref(cot, page_idx, lf,
+                                          meta.total_pages)
+        mag = trilinear.trilinear_bwd_ref(cot.abs(), page_idx, lf,
+                                          meta.total_pages)
+        tol = KERNEL_TOL * mag + (2.0 ** -8 * ref.abs()
+                                  if dtype == torch.bfloat16 else 0.0)
+        if out.shape != ref.shape or not bool(
+                ((out.float() - ref).abs() <= tol + 1e-30).all()):
+            raise RuntimeError(f"trilinear_bwd at C = 3 {dtype} disagrees "
+                               f"with its plain version")
+        if dtype == torch.float32:
+            errs["trilinear_bwd"] = float((out - ref).abs().max())
+    torch.cuda.synchronize()
+    log(f"C = 3 (padded to 4), 65,536 points x 8 levels: max |kernel - "
+        f"plain| {json.dumps(errs)} (trilinear_bwd in f32)")
+    return errs
+
+
+class _Unimportable(importlib.abc.MetaPathFinder):
+    def __init__(self, names: tuple):
+        self.names = names
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in self.names:
+            raise ImportError(f"{name} is made unimportable for this phase")
+        return None
+
+
+@contextlib.contextmanager
+def unimportable(*names: str):
+    """Inside, importing any of ``names`` raises ImportError, as on the
+    machine with the card, which installs neither yaml nor PIL."""
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m.split(".")[0] in names}
+    finder = _Unimportable(names)
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved)
+
+
+def _log_reports(path: pathlib.Path) -> list[dict]:
+    rows = []
+    for line in path.read_text().splitlines():
+        if "Iter:" not in line:
+            continue
+        f = line.split()
+        rows.append({"step": int(f[f.index("Iter:") + 1]),
+                     "psnr": float(f[f.index("PSNR:") + 1]),
+                     "loss": float(f[f.index("LOSS:") + 1])})
+    return rows
+
+
+def _subpath(name: str, used: tuple, fn) -> tuple[dict, object]:
+    """``fn()`` between zeroed and read launch counts; the kernels in
+    ``used`` must launch, the others not. Returns ({wall_s, launches},
+    what ``fn`` returned)."""
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    res = {"wall_s": time.perf_counter() - t0, "launches": read_launches()}
+    check_launches(f"run-directory {name}", res["launches"], used)
+    return res, out
+
+
+def _check_resumed(tr: Trainer, state: dict) -> None:
+    """The resumed trainer holds the checkpoint's state bitwise."""
+    if tr.step != state["step"] or tr.optimizer.count != state["count"]:
+        raise RuntimeError(f"resumed step {tr.step} / count "
+                           f"{tr.optimizer.count}, saved {state['step']} / "
+                           f"{state['count']}")
+    for name, p in tr.optimizer.named.items():
+        if not torch.equal(p.detach().cpu(), state["params"][name]):
+            raise RuntimeError(f"resumed {name} differs from the checkpoint")
+    live = tr.optimizer.adam.state_dict()["state"]
+    for k, saved in state["adam"]["state"].items():
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(live[k][key].cpu(), saved[key]):
+                raise RuntimeError(f"resumed Adam {key} of param {k} "
+                                   f"differs from the checkpoint")
+    if not torch.equal(tr.occ_grid.cpu(), state["occ_grid"]):
+        raise RuntimeError("resumed occupancy grid differs")
+
+
+def _pose_error(reply_pose, true_world: np.ndarray) -> float:
+    return float(np.linalg.norm(np.asarray(reply_pose)[:3, 3]
+                                - true_world[:3, 3]))
+
+
+def loop_vs_bare(tr: Trainer) -> dict:
+    """The loop's steady step (``Trainer.run``: batches from its source,
+    draws, the step, metrics fetched at each report) against the bare
+    train step on batches already on the card, LOOP_STEPS steps a window,
+    in turns loop, bare, bare, loop; ms per step on the host clock around
+    synchronized windows; then 4 more loop steps profiled."""
+    step_fn = make_train_step(tr.cfg, tr.optimizer)
+    batches = [tr.next_batch() for _ in range(LOOP_STEPS)]
+    rays = tr.cfg.train.rays_per_step
+    times = {"loop": [], "bare": []}
+
+    def bare():
+        for k in range(LOOP_STEPS):
+            tr.occ_grid, _ = step_fn(tr.params, tr.occ_grid, tr.poses,
+                                     tr.intrinsics, tr.step + k, *batches[k])
+        tr.step += LOOP_STEPS
+
+    for which in ("loop", "bare", "bare", "loop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "loop":
+            tr.run(LOOP_STEPS)
+        else:
+            bare()
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / LOOP_STEPS)
+    prof = profile_call(lambda: tr.run(4), "4 loop steps (one refresh)")
+    loop_ms, bare_ms = float(np.mean(times["loop"])), float(
+        np.mean(times["bare"]))
+    log(f"loop step {[round(t, 3) for t in times['loop']]} ms vs bare step "
+        f"{[round(t, 3) for t in times['bare']]} ms at {rays} rays "
+        f"({rays / loop_ms * 1e3:.0f} vs {rays / bare_ms * 1e3:.0f} rays/s; "
+        f"the loop's own host time {loop_ms - bare_ms:+.3f} ms per step)")
+    return {"loop_ms": times["loop"], "bare_ms": times["bare"],
+            "loop_rays_per_s": rays / loop_ms * 1e3,
+            "bare_rays_per_s": rays / bare_ms * 1e3,
+            "loop_overhead_ms": loop_ms - bare_ms, "profile": prof}
+
+
+def run_directory_phase(seed: int, dev: torch.device) -> dict:
+    """Dataset directory -> train -> run directory -> resume, test, serve,
+    through the CLI and the service, with yaml and PIL unimportable (see
+    the module docstring, phase 6)."""
+    t_phase = time.perf_counter()
+    sub = {}
+    with tempfile.TemporaryDirectory() as tmp, unimportable("yaml", "PIL"):
+        data, run = pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "run"
+        save_dataset(make_textured_dataset(seed=seed), data)
+        run.mkdir()
+        cfg = Config.quality(end_iter=RUN_STEPS)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, report_freq=RUN_REPORT, save_freq=RUN_STEPS // 2,
+            vis_freq=RUN_STEPS))
+        cfg.save(run / "train_config.yaml")
+        t_setup = time.perf_counter() - t_phase
+
+        sub["train"], _ = _subpath(
+            "train", ("trilinear_fwd", "trilinear_bwd"),
+            lambda: cli.main(["train", str(run), str(data)]))
+        reports = _log_reports(run / "train_log.txt")
+        log("train PSNR (smoothed) per report: " + ", ".join(
+            f"{r['step']}: {r['psnr']:.3f}" for r in reports))
+        if len(reports) != RUN_STEPS // RUN_REPORT:
+            raise RuntimeError(f"{len(reports)} reports in train_log.txt")
+        if not reports[-1]["loss"] < reports[0]["loss"]:
+            raise RuntimeError(f"loss did not fall: {reports}")
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("step_*"))
+        if ckpts != [f"step_{RUN_STEPS // 2:08d}", f"step_{RUN_STEPS:08d}"]:
+            raise RuntimeError(f"checkpoints {ckpts}")
+        ds = load_dataset(data)
+        vis = read_image(run / "images" / f"{RUN_STEPS:08d}_0.png")
+        if vis.shape != (ds.height, 3 * ds.width, 3):
+            raise RuntimeError(f"vis PNG {vis.shape}")
+
+        # resume: a fresh trainer holds the last checkpoint bitwise; a
+        # second train call trains nothing
+        tr = Trainer(Config.load(run / "train_config.yaml"), ds,
+                     result_dir=run)
+        if not tr.try_resume():
+            raise RuntimeError("try_resume found no checkpoint")
+        _check_resumed(tr, ckpt_lib.restore(run / "checkpoints"))
+        log(f"resumed at step {tr.step} bitwise equal to the checkpoint; "
+            f"batch source: {tr.batch_source}")
+        n_log = len((run / "train_log.txt").read_text().splitlines())
+        cli.main(["train", str(run), str(data)])
+        if (len((run / "train_log.txt").read_text().splitlines()) != n_log
+                or ckpt_lib.latest_step(run / "checkpoints") != RUN_STEPS):
+            raise RuntimeError("the second train call trained")
+
+        sub["test"], _ = _subpath(
+            "test", ("trilinear_fwd",),
+            lambda: cli.main(["test", str(run), str(data)]))
+        summary = (run / "test_result" / "summary.tsv").read_text()
+        pairs = [read_image(run / "test_result" / f"{i:08d}.png")
+                 for i in range(ds.n_images)]
+        w = pairs[0].shape[1] // 2
+        test_psnr = float(np.mean([psnr(x[:, w:], x[:, :w]) for x in pairs]))
+        test_ssim = float(np.mean([ssim(x[:, w:], x[:, :w]) for x in pairs]))
+        log(f"test summary.tsv: {summary.strip()!r}; renders "
+            f"{pairs[0].shape[0]}x{w}: mean PSNR {test_psnr:.3f}, SSIM "
+            f"{test_ssim:.4f}")
+
+        loc = Localizer.from_checkpoint(run)
+        full = [loc.render_image(ds.poses[i]).cpu().numpy()
+                for i in range(ds.n_images)]
+        view_psnr = float(np.mean([psnr(f, g) for f, g in
+                                   zip(full, ds.images)]))
+        view_ssim = float(np.mean([ssim(f, g) for f, g in
+                                   zip(full, ds.images)]))
+        log(f"training views at {ds.height}x{ds.width}: mean PSNR "
+            f"{view_psnr:.3f}, SSIM {view_ssim:.4f}")
+
+        svc = LocalizerService(loc)
+        true_world = loc.camera2world(ds.poses[SERVE_VIEW])
+        moved = true_world.copy()
+        moved[:3, 3] += POSE_SHIFT
+        image = ds.images[SERVE_VIEW].tolist()
+        requests = {}
+        for mode, used in ((0, ("trilinear_fwd",)),
+                           (1, ("trilinear_fwd", "trilinear_bwd_frac"))):
+            if not svc.handle({"cmd": "init_pose",
+                               "pose": moved.tolist()})["ok"]:
+                raise RuntimeError("init_pose failed")
+            req = {"cmd": "localize", "image": image, "mode": mode,
+                   "particle_num": PARTICLES}
+            sub[f"mode{mode}"], r = _subpath(f"mode {mode}", used,
+                                             lambda: svc.handle(req))
+            check_reply(r, f"run-directory mode-{mode} request")
+            requests[mode] = {
+                "position_error_before": _pose_error(moved, true_world),
+                "position_error_after": _pose_error(r["pose"], true_world),
+                "score": r["score"],
+                "ms": sub[f"mode{mode}"]["wall_s"] * 1e3}
+            log(f"mode-{mode} request on view {SERVE_VIEW}: position error "
+                f"{requests[mode]['position_error_before']:.4f} -> "
+                f"{requests[mode]['position_error_after']:.4f} (world units), "
+                f"score {r['score']:.4g}, {requests[mode]['ms']:.1f} ms")
+
+        timing = loop_vs_bare(tr)
+        batch_source = tr.batch_source
+        tr.close()
+    wall_s = time.perf_counter() - t_phase
+    log(f"run-directory phase: {wall_s:.1f} s (set-up {t_setup:.1f} s, "
+        f"train {sub['train']['wall_s']:.1f} s for {RUN_STEPS} steps)")
+    return {"subpaths": sub, "reports": reports, "test_summary": summary,
+            "test_psnr": test_psnr, "test_ssim": test_ssim,
+            "view_psnr": view_psnr, "view_ssim": view_ssim,
+            "requests": requests, "timing": timing,
+            "batch_source": batch_source, "wall_s": wall_s}
+
+
 def profile_call(fn, what: str) -> dict:
     """One more call under torch.profiler: wall time, device kernel time
     by name, and the device's busy share of the wall time."""
@@ -1007,10 +1318,16 @@ def main() -> int:
                bwd_kernel_phase(train_cfg(TRAIN_RAYS), args.seed, dev),
                frac_kernel_phase(cfg, args.seed, dev, situ)]
     del situ
+    narrow = narrow_channels_check(args.seed, dev)
+    for k in kernels:
+        k["max_abs_err_c3"] = narrow[k["name"]]
     paths = {"serving": serving_phase(cfg, args.seed, dev),
              "training": training_phase(train_cfg(TRAIN_RAYS), args.seed,
                                         dev),
              "differential": differential_phase(cfg, args.seed, dev)}
+    run_dir = run_directory_phase(args.seed, dev)
+    for name, res in run_dir.pop("subpaths").items():
+        paths[f"run_directory/{name}"] = res
     cross_check_phase(cfg, args.seed, dev)
     step_check = step_check_phase(args.seed, dev)
     pose_check = pose_check_phase(cfg, args.seed, dev)
@@ -1022,6 +1339,7 @@ def main() -> int:
         k["launches_by_path"] = by_path
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
+    log(f"run directory: {json.dumps(run_dir)}")
     log(f"step check: {json.dumps(step_check)}")
     log(f"pose check: {json.dumps(pose_check)}")
     print(json.dumps({"kernels": kernels}))

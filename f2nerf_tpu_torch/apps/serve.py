@@ -27,8 +27,12 @@ at lr 1e-4 on the pose per frame. Mode 2 is the staged pipeline
 differential refinement with backtracking, for (re)acquisition from a
 coarse prior.
 
-Run: ``python -m f2nerf_tpu_torch.apps.serve <run_dir>`` (see
-``Localizer.from_checkpoint`` for what the run directory holds).
+Run: ``python -m f2nerf_tpu_torch.apps.serve <run_dir>``. The run
+directory is what ``python -m f2nerf_tpu_torch.apps.main train`` writes
+(``train_config.yaml``, ``inference_params.yaml`` and
+``checkpoints/step_*``), or a converted JAX run with
+``torch_params.npz`` in place of the checkpoints (see
+``Localizer.from_checkpoint``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ trainer (``train_config.yaml``) or ``dataclasses.asdict`` of a JAX config
 loads here unchanged. The reasons behind each default are documented in
 the JAX package; comments here say only what a field does.
 
-``yaml`` is imported inside :meth:`Config.load` and :meth:`Config.save`
-only, so importing this module needs nothing beyond the standard library.
+:meth:`Config.load` and :meth:`Config.save` read and write YAML through
+the port's own ``core/yaml_io.py``, so no ``yaml`` package is needed.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import dataclasses
 import json
 import pathlib
 from typing import Any
+
+from f2nerf_tpu_torch.core import yaml_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,10 +189,7 @@ class Config:
     def load(path: str | pathlib.Path) -> "Config":
         """Load a YAML config: this framework's layout ({model, train})
         or the reference's train_config.yaml layout ({train} only)."""
-        import yaml
-
-        with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+        raw = yaml_io.load(path) or {}
         train_d = dict(raw.get("train", {}))
         train_d.pop("validate_freq", None)
         known = {f.name for f in dataclasses.fields(TrainConfig)}
@@ -201,10 +200,9 @@ class Config:
         return Config(model=ModelConfig(**model_d), train=TrainConfig(**train_d))
 
     def save(self, path: str | pathlib.Path) -> None:
-        import yaml
-
-        with open(path, "w") as f:
-            yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+        """The text ``yaml.safe_dump(self.to_dict(), sort_keys=False)``
+        gives."""
+        yaml_io.dump(self.to_dict(), path)
 
 
 def _coerce(v: Any) -> Any:

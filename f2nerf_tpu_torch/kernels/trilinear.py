@@ -26,7 +26,9 @@ s at columns s*C .. s*C + C - 1 (``ops/hash_paged.py``), so a corner is
 one vector load in the CUDA kernels.
 
 Each wrapper takes the plain version only for tensors on the CPU. For a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernels are built for
+C in {1, 2, 4, 8}; the wrappers zero-pad any other C up to 8 (3 -> 4,
+5-7 -> 8) and slice the result, so a supported width takes no copy.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 ROW_PAD = 128        # slots of a haloed row (125 cells, lane-padded)
+# channel counts the kernels are instantiated for
 _SUPPORTED_CHANNELS = (1, 2, 4, 8)
 # largest L*C of trilinear_fwd / trilinear_bwd_frac: a block's [32, L*C]
 # f32 tile in shared memory (kMaxRowFloats, csrc/trilinear_common.cuh)
@@ -97,8 +101,9 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
     if haloed.device.type == "cpu":
         return trilinear_fwd_ref(haloed, page_idx, local_frac, chunk)
     n_levels, n = page_idx.shape
-    c = _check_table("trilinear_fwd", haloed, n_levels)
+    c, width = _check_table("trilinear_fwd", haloed, n_levels)
     _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac)
+    haloed = _pad_channels(haloed, c, width)
     haloed, local_frac = _aligned(haloed, 16), _aligned(local_frac, 8)
     from f2nerf_tpu_torch.kernels.build import load_library
 
@@ -109,37 +114,68 @@ def trilinear_fwd(haloed: torch.Tensor, page_idx: torch.Tensor,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    feat = torch.empty((n, n_levels * c), dtype=torch.float32,
+    feat = torch.empty((n, n_levels * width), dtype=torch.float32,
                        device=haloed.device)
     with torch.cuda.device(haloed.device):
         stream = torch.cuda.current_stream(haloed.device).cuda_stream
         rc = fn(haloed.data_ptr(), int(haloed.dtype == torch.bfloat16),
                 page_idx.data_ptr(), local_frac.data_ptr(), feat.data_ptr(),
-                n, n_levels, c, haloed.shape[0], stream)
+                n, n_levels, width, haloed.shape[0], stream)
     if rc != 0:
         raise RuntimeError(f"trilinear_fwd kernel launch failed: CUDA "
                            f"error {rc}")
     trilinear_fwd.launches += 1
-    return feat
+    return _unpad_channels(feat, c, width)
 
 
-def _check_table(kernel: str, haloed: torch.Tensor, n_levels: int) -> int:
-    """A table the CUDA kernels take: on cuda, bf16 or f32, C in
-    ``_SUPPORTED_CHANNELS``, L*C at most ``_MAX_LEVEL_CHANNELS``;
-    returns C."""
+def _kernel_width(kernel: str, c: int, n_levels: int,
+                  tile: bool = True) -> int:
+    """The channel count the kernel runs at for C channels: C itself when
+    it is in ``_SUPPORTED_CHANNELS``, else the next one up (the wrappers
+    zero-pad). ``tile``: the kernel keeps a block's [32, L*width] f32 tile
+    in shared memory, so L*width may not pass ``_MAX_LEVEL_CHANNELS``."""
+    width = next((w for w in _SUPPORTED_CHANNELS if w >= c), None)
+    if c < 1 or width is None:
+        raise ValueError(f"{kernel} supports 1 <= C <= "
+                         f"{_SUPPORTED_CHANNELS[-1]}, got {c}")
+    if tile and n_levels * width > _MAX_LEVEL_CHANNELS:
+        raise ValueError(
+            f"{kernel} supports L*C <= {_MAX_LEVEL_CHANNELS} (a block's "
+            f"[32, L*C] f32 tile in shared memory), got {n_levels}*{width}"
+            + (f" (C = {c} runs at {width})" if width != c else ""))
+    return width
+
+
+def _pad_channels(t: torch.Tensor, c: int, width: int) -> torch.Tensor:
+    """[rows, k*c] with the c channels innermost -> [rows, k*width], the
+    channels zero-padded; ``t`` itself when width == c."""
+    if width == c:
+        return t
+    rows = t.shape[0]
+    return F.pad(t.view(rows, -1, c), (0, width - c)).reshape(rows, -1)
+
+
+def _unpad_channels(t: torch.Tensor, c: int, width: int) -> torch.Tensor:
+    """Inverse of :func:`_pad_channels`: keep the first c of each width."""
+    if width == c:
+        return t
+    rows = t.shape[0]
+    return t.view(rows, -1, width)[..., :c].reshape(rows, -1)
+
+
+def _check_table(kernel: str, haloed: torch.Tensor, n_levels: int
+                 ) -> tuple[int, int]:
+    """A table the CUDA kernels take: on cuda, bf16 or f32, 1 <= C <= 8,
+    L*C (padded) at most ``_MAX_LEVEL_CHANNELS``; returns (C, the width
+    the kernel runs at)."""
     if haloed.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cuda or cpu, not "
                          f"{haloed.device}")
     c = haloed.shape[1] // ROW_PAD
-    if c not in _SUPPORTED_CHANNELS:
-        raise ValueError(f"{kernel} supports C in {_SUPPORTED_CHANNELS}, "
-                         f"got {c}")
-    if n_levels * c > _MAX_LEVEL_CHANNELS:
-        raise ValueError(f"{kernel} supports L*C <= {_MAX_LEVEL_CHANNELS}, "
-                         f"got {n_levels}*{c}")
+    width = _kernel_width(kernel, c, n_levels)
     if haloed.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"haloed must be bf16 or f32, got {haloed.dtype}")
-    return c
+    return c, width
 
 
 def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -220,21 +256,20 @@ def trilinear_bwd(g: torch.Tensor, page_idx: torch.Tensor,
         raise ValueError(f"trilinear_bwd runs on cuda or cpu, not "
                          f"{g.device}")
     c = g.shape[1] // n_levels
-    if c not in _SUPPORTED_CHANNELS:
-        raise ValueError(f"trilinear_bwd supports C in "
-                         f"{_SUPPORTED_CHANNELS}, got {c}")
+    width = _kernel_width("trilinear_bwd", c, n_levels, tile=False)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"d_haloed must be bf16 or f32, got {dtype}")
     if g.dtype != torch.float32:
         raise ValueError(f"g must be float32, got {g.dtype}")
     _check_cuda(g=g, page_idx=page_idx, local_frac=local_frac)
-    d_haloed = torch.zeros((n_pages, c * ROW_PAD), dtype=dtype,
-                           device=g.device)
     if n * n_levels == 0:
-        return d_haloed
+        return torch.zeros((n_pages, c * ROW_PAD), dtype=dtype,
+                           device=g.device)
+    d_haloed = torch.zeros((n_pages, width * ROW_PAD), dtype=dtype,
+                           device=g.device)
     skey, perm = _bwd_sort(page_idx, n_pages)
-    _bwd_passes(g, local_frac, skey, perm, d_haloed)
-    return d_haloed
+    _bwd_passes(_pad_channels(g, c, width), local_frac, skey, perm, d_haloed)
+    return _unpad_channels(d_haloed, c, width)
 
 
 def _bwd_sort(page_idx: torch.Tensor, n_pages: int):
@@ -349,11 +384,12 @@ def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
                          f"{tuple(g.shape)}")
     if haloed.device.type == "cpu":
         return trilinear_bwd_frac_ref(haloed, page_idx, local_frac, g, chunk)
-    _check_table("trilinear_bwd_frac", haloed, n_levels)
+    c, width = _check_table("trilinear_bwd_frac", haloed, n_levels)
     if g.dtype != torch.float32:
         raise ValueError(f"g must be float32, got {g.dtype}")
     _check_cuda(haloed=haloed, page_idx=page_idx, local_frac=local_frac,
                 g=g)
+    haloed, g = _pad_channels(haloed, c, width), _pad_channels(g, c, width)
     haloed, local_frac = _aligned(haloed, 16), _aligned(local_frac, 8)
     g = _aligned(g, 16)
     from f2nerf_tpu_torch.kernels.build import load_library
@@ -371,7 +407,7 @@ def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
         stream = torch.cuda.current_stream(haloed.device).cuda_stream
         rc = fn(haloed.data_ptr(), int(haloed.dtype == torch.bfloat16),
                 page_idx.data_ptr(), local_frac.data_ptr(), g.data_ptr(),
-                d_local_frac.data_ptr(), n, n_levels, c, haloed.shape[0],
+                d_local_frac.data_ptr(), n, n_levels, width, haloed.shape[0],
                 stream)
     if rc != 0:
         raise RuntimeError(f"trilinear_bwd_frac kernel launch failed: CUDA "

@@ -182,41 +182,60 @@ class Localizer:
                         device: str | torch.device | None = None
                         ) -> "Localizer":
         """Load a run directory: ``inference_params.yaml`` and
-        ``train_config.yaml`` (the files the JAX trainer writes) and
-        ``torch_params.npz``, the params tree flattened by
-        ``convert.flatten`` ("field/feat_pool", "field/mlp/w", ...,
-        "app_emb") plus the occupancy grid as "occ_grid".
+        ``train_config.yaml`` (the files both trainers write), then the
+        field, from the first of:
 
-        A JAX run's Orbax checkpoint becomes that file by ``np.savez`` of
-        its restored leaves, with the JAX package installed::
+        * the newest checkpoint of the port's trainer,
+          ``checkpoints/step_*/state.pt`` (``train/checkpoint.py``), as
+          the JAX localizer reads its newest checkpoint;
+        * ``torch_params.npz``, a converted JAX run: the params tree
+          flattened by ``convert.flatten`` ("field/feat_pool",
+          "field/mlp/w", ..., "app_emb") plus the occupancy grid as
+          "occ_grid". A JAX run's Orbax checkpoint becomes that file by
+          ``np.savez`` of its restored leaves, with the JAX package
+          installed::
 
-            state = f2nerf_tpu.train.checkpoint.restore(run / "checkpoints", template)
-            flat = convert.flatten(jax.tree.map(np.asarray, state["params"]))
-            flat["occ_grid"] = np.asarray(state["extra"]["occ_grid"])
-            np.savez(run / "torch_params.npz", **flat)
+              state = f2nerf_tpu.train.checkpoint.restore(run / "checkpoints", template)
+              flat = convert.flatten(jax.tree.map(np.asarray, state["params"]))
+              flat["occ_grid"] = np.asarray(state["extra"]["occ_grid"])
+              np.savez(run / "torch_params.npz", **flat)
 
-        where ``template`` is built as in the JAX ``Localizer.from_checkpoint``.
+          where ``template`` is built as in the JAX
+          ``Localizer.from_checkpoint``.
+
+        Raises ``FileNotFoundError`` naming both when neither exists.
+        Reads no ``yaml`` (``core/yaml_io.py``).
         """
-        import yaml
-
         from f2nerf_tpu_torch.convert import params_from_numpy, unflatten
+        from f2nerf_tpu_torch.core import yaml_io
         from f2nerf_tpu_torch.models import occupancy
+        from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 
         d = pathlib.Path(train_result_dir)
-        with open(d / "inference_params.yaml") as fh:
-            text = fh.read().replace("%YAML 1.2", "").replace("---", "")
-        ip = yaml.safe_load(text)
+        ip = yaml_io.load(d / "inference_params.yaml")
         cfg = Config.load(d / "train_config.yaml")
         dev = resolve_device(device)
-        with np.load(d / "torch_params.npz") as data:
-            flat = {k: data[k] for k in data.files}
-        occ_grid = flat.pop("occ_grid", None)
-        params = params_from_numpy(unflatten(flat), dev)
+        npz = d / "torch_params.npz"
+        if ckpt_lib.latest_step(d / "checkpoints") is not None:
+            state = ckpt_lib.restore(d / "checkpoints")
+            params = unflatten({k: v.to(dev)
+                                for k, v in state["params"].items()})
+            occ_grid = state["occ_grid"]
+        elif npz.is_file():
+            with np.load(npz) as data:
+                flat = {k: data[k] for k in data.files}
+            occ_grid = flat.pop("occ_grid", None)
+            params = params_from_numpy(unflatten(flat), dev)
+        else:
+            raise FileNotFoundError(
+                f"{d} holds neither a checkpoint of the port's trainer "
+                f"(checkpoints/step_*/{ckpt_lib.STATE_FILE}) nor "
+                f"torch_params.npz (a converted JAX run)")
         occ_vals = None
         if cfg.model.sampler_mode == "occ":
             if occ_grid is None:
-                raise ValueError("torch_params.npz has no occ_grid, which "
-                                 "sampler_mode='occ' needs")
+                raise ValueError("the run directory has no occupancy grid, "
+                                 "which sampler_mode='occ' needs")
             occ_vals = occupancy.occ_values(
                 torch.as_tensor(occ_grid, device=dev), cfg.model)
         intr = np.array(ip["intrinsic"], dtype=np.float32).reshape(3, 3)

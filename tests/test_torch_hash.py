@@ -533,3 +533,51 @@ def test_trilinear_bwd_ref_is_the_cpu_path():
         ttri.trilinear_bwd(gt[:-1], pidx, lf, tm.total_pages)
     with pytest.raises(ValueError):
         ttri.trilinear_bwd(gt, pidx, lf[:, :-1], tm.total_pages)
+
+
+@pytest.mark.parametrize("channels", [3, 5, 6, 7])
+def test_channel_padding_glue(channels):
+    """The wrappers run a C the kernels are not built for at the next
+    width they are (3 -> 4, 5-7 -> 8): the table and g zero-padded, the
+    output sliced. On the plain versions that glue gives what C itself
+    gives, within 1e-6 (the padded channels are zeros; the vectorized
+    f32 sums may take another order at another width)."""
+    cfg = TModelConfig(n_levels=3, n_channels=channels, log2_table_size=10)
+    tm = thf.paged_meta(cfg)
+    width = ttri._kernel_width("k", channels, tm.n_levels)
+    assert width == (4 if channels == 3 else 8)
+    pages, pts, g = _grad_inputs(tm, 300, 40 + channels)
+    haloed = thp.halo_pages(torch.from_numpy(pages), tm)
+    pidx, local, frac = thp.page_indices(torch.from_numpy(pts), tm)
+    lf = torch.cat([local.float(), frac], dim=-1)
+    gt = torch.from_numpy(g)
+    wide_table = ttri._pad_channels(haloed, channels, width)
+    wide_g = ttri._pad_channels(gt, channels, width)
+    assert wide_table.shape == (tm.total_pages, 128 * width)
+    assert wide_g.shape == (300, tm.n_levels * width)
+    assert ttri._pad_channels(haloed, channels, channels) is haloed
+    feat = ttri._unpad_channels(
+        ttri.trilinear_fwd_ref(wide_table, pidx, lf), channels, width)
+    torch.testing.assert_close(feat, ttri.trilinear_fwd_ref(haloed, pidx, lf),
+                               rtol=0, atol=1e-6)
+    d_table = ttri._unpad_channels(
+        ttri.trilinear_bwd_ref(wide_g, pidx, lf, tm.total_pages),
+        channels, width)
+    torch.testing.assert_close(
+        d_table, ttri.trilinear_bwd_ref(gt, pidx, lf, tm.total_pages),
+        rtol=0, atol=1e-6)
+    d_lf = ttri.trilinear_bwd_frac_ref(wide_table, pidx, lf, wide_g)
+    torch.testing.assert_close(
+        d_lf, ttri.trilinear_bwd_frac_ref(haloed, pidx, lf, gt),
+        rtol=0, atol=1e-6)
+
+
+def test_kernel_width_limits():
+    """C beyond 8 and a padded L*C beyond the shared-memory tile raise;
+    the page-gradient kernel keeps no such tile."""
+    with pytest.raises(ValueError, match="C <= 8"):
+        ttri._kernel_width("trilinear_fwd", 9, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        ttri._kernel_width("trilinear_fwd", 6, 40)       # 40 * 8 > 256
+    assert ttri._kernel_width("trilinear_bwd", 6, 40, tile=False) == 8
+    assert ttri._kernel_width("trilinear_fwd", 4, 64) == 4

@@ -44,7 +44,11 @@ def test_port_module_list_is_complete():
     assert "f2nerf_tpu_torch.apps.serve" in PORT_MODULES
     assert "f2nerf_tpu_torch.train.step" in PORT_MODULES
     assert "f2nerf_tpu_torch.train.optim" in PORT_MODULES
-    assert len(PORT_MODULES) >= 23
+    for name in ("data.dataset", "data.synthetic", "data.native_loader",
+                 "train.loop", "train.checkpoint", "apps.main",
+                 "core.yaml_io", "utils.timer"):
+        assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
+    assert len(PORT_MODULES) >= 31
 
 
 @pytest.fixture(scope="module")
@@ -65,7 +69,8 @@ def test_chip_smoke_imports_no_jax(smoke_loaded):
 @pytest.mark.parametrize("banned", ["yaml", "PIL"])
 def test_chip_smoke_imports_no_uninstalled(smoke_loaded, banned):
     loaded = smoke_loaded
-    assert "f2nerf_tpu_torch.apps.serve" in loaded
-    assert "f2nerf_tpu_torch.train.step" in loaded
+    for name in ("apps.serve", "apps.main", "train.step", "train.loop",
+                 "data.dataset", "core.yaml_io"):
+        assert f"f2nerf_tpu_torch.{name}" in loaded, name
     assert not any(m == banned or m.startswith(banned + ".")
                    for m in loaded)

@@ -34,7 +34,8 @@ entry, long runs and one run through every tile, at every C and L in
 of real renders at the full ``Config()`` width
 (``chip_smoke.in_situ_inputs``), whose rays make neighbouring lanes
 gather from neighbouring cells, and ``trilinear_bwd`` on one training
-step's (``chip_smoke.train_step_inputs``).
+step's (``chip_smoke.train_step_inputs``). C = 3, which the kernels are
+not built for, runs through the wrappers' zero-padding to C = 4.
 """
 
 import importlib.util
@@ -77,7 +78,7 @@ SHAPES = [(1, 8), (31, 8), (33, 8), (1001, 8), (65537, 8), (1001, 1),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,levels", SHAPES)
-@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 8])
 def test_trilinear_fwd_matches_plain(cuda, dtype, n, levels, channels):
     cfg = ModelConfig(n_levels=levels, n_channels=channels,
                       log2_table_size=14)
@@ -192,7 +193,7 @@ BWD_SHAPES = [(1, 1, "uniform"), (85, 3, "uniform"), (32, 8, "uniform"),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,levels,kind", BWD_SHAPES)
-@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 8])
 def test_trilinear_bwd_matches_plain(cuda, dtype, n, levels, kind, channels):
     cfg = ModelConfig(n_levels=levels, n_channels=channels,
                       log2_table_size=14)
@@ -252,7 +253,7 @@ def _frac_inputs(cfg, n, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,levels", SHAPES)
-@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 8])
 def test_trilinear_bwd_frac_matches_plain(cuda, dtype, n, levels, channels):
     cfg = ModelConfig(n_levels=levels, n_channels=channels,
                       log2_table_size=14)
