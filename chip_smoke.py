@@ -67,9 +67,31 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    ``feat_pool`` grads; whether two runs give bitwise-equal pose
    gradients is reported.
 
-Then one JSON line per the kernels, the ``nvidia-smi`` name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits non-zero and prints no result.
+8. The perspective warp (``warp_mode="perspective"`` at its defaults:
+   64 regions, 4 cameras a region, a blend of the 3 nearest charts):
+   (a) training at ``bench.py --warp perspective``'s point (phase 4's,
+   with the warp tables of ``make_sphere_dataset(n_images=8, h=8,
+   w=8)``'s ring, ``bench.py:216-225``), the profiled step naming the
+   warp's ops (``record_function("warp_points")``) and their device ms;
+   (b) the three kernels on the warp paths' own inputs, checked and
+   timed as in phase 2: ``trilinear_fwd`` and ``trilinear_bwd_frac`` on
+   one full-frame 106x240 render through the warp at a corridor view,
+   ``trilinear_bwd`` on the warp training step's pairs; (c) phase 6 on
+   ``make_corridor_dataset()`` (24 views of 128x128 on a 16-unit forward
+   path) with the warp: the tables checked bitwise against
+   ``build_warp(ds.poses, cfg.model)`` in the trainer, the resumed
+   trainer and the localizer, and one mode-0, one mode-1 and one mode-2
+   request (launch counts per sub-path, as in phase 6, with mode 2 as
+   mode 1; peak memory per request); (d) phase 7's render and pose
+   checks through the corridor's tables: the render at phase 7's
+   tolerance, the pose gradient at ``WARP_POSE_TOL`` and the warp alone
+   at tight tolerances (``pose_check_phase``).
+
+A phase that fails is reported and the others still run; the script
+then exits non-zero. Otherwise one JSON line per the kernels (with the
+launches by path, the warp paths under ``warp/``), the ``nvidia-smi``
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -84,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from unittest import mock
 
 import numpy as np
@@ -91,15 +114,18 @@ import torch
 
 from f2nerf_tpu_torch.apps import main as cli
 from f2nerf_tpu_torch.apps.serve import LocalizerService
+from f2nerf_tpu_torch.convert import flatten
 from f2nerf_tpu_torch.core.cameras import rays_from_pose
 from f2nerf_tpu_torch.core.config import Config, ModelConfig
 from f2nerf_tpu_torch.data.dataset import load_dataset, save_dataset
-from f2nerf_tpu_torch.data.synthetic import make_textured_dataset
+from f2nerf_tpu_torch.data.synthetic import (make_corridor_dataset,
+                                             make_sphere_dataset,
+                                             make_textured_dataset)
 from f2nerf_tpu_torch.kernels import build, trilinear
 from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
+from f2nerf_tpu_torch.models.warp import build_warp, warp_consts
 from f2nerf_tpu_torch.ops import hash_paged
-from f2nerf_tpu_torch.ops.contraction import contract
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.loop import Trainer
 from f2nerf_tpu_torch.train.optim import make_optimizer
@@ -127,6 +153,9 @@ RUN_STEPS, RUN_REPORT = 600, 50
 LOOP_STEPS = 40              # steps per timing window, loop vs bare step
 SERVE_VIEW = 5               # the training view the requests localize
 POSE_SHIFT = (0.012, -0.008, 0.014)   # world units (2.0 cm)
+# the pose gradient through the warp, card vs CPU, of its largest entry
+# (pose_check_phase: measured 8.6e-2; the contraction's is 1e-2)
+WARP_POSE_TOL = 0.25
 
 
 def zero_launches() -> None:
@@ -311,6 +340,77 @@ def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
             in zip(("frame", "particles"), captured, strict=True)}
 
 
+def warp_cfg(cfg: Config) -> Config:
+    """``cfg`` with the perspective warp at its defaults (64 regions, 4
+    cameras a region, a blend of the 3 nearest charts)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, warp_mode="perspective"))
+
+
+def bench_warp_consts(cfg: Config, dev: torch.device) -> dict:
+    """The warp tables of ``bench.py --warp perspective``
+    (``bench.py:216-225``): built from the ring of
+    ``make_sphere_dataset(n_images=8, h=8, w=8)``."""
+    ring = make_sphere_dataset(n_images=N_IMAGES, h=8, w=8)
+    return warp_consts(ring.poses, cfg.model, dev)
+
+
+def warp_frame_inputs(seed: int, dev: torch.device,
+                      cfg: Config | None = None) -> tuple:
+    """The encode inputs of one full-frame 106x240 render through the
+    warp (``cfg``, default ``Config()``, with the warp; the tables of
+    ``make_corridor_dataset(seed=seed)``; O(1) features) at the
+    corridor's view ``SERVE_VIEW``: (bf16 haloed table, page_idx,
+    local_frac), 25,440 rays x 64 samples."""
+    cfg = warp_cfg(cfg or Config())
+    corridor = make_corridor_dataset(seed=seed)
+    loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev),
+                         consts=warp_consts(corridor.poses, cfg.model, dev))
+    orig = hash_paged.page_indices
+    captured = []
+
+    def capture(points, meta):
+        captured.append(orig(points, meta))
+        return captured[-1]
+
+    with mock.patch.object(hash_paged, "page_indices", capture):
+        loc.render_image(corridor.poses[SERVE_VIEW])
+    (page_idx, local, frac), = captured
+    return (loc.params["field"]["haloed"], page_idx,
+            torch.cat([local.float(), frac], dim=-1))
+
+
+def warp_train_inputs(seed: int, dev: torch.device):
+    """``train_step_inputs`` of the warp training step
+    (``bench.py --warp perspective``'s point)."""
+    cfg = warp_cfg(train_cfg(TRAIN_RAYS))
+    return train_step_inputs(cfg, seed, dev, bench_warp_consts(cfg, dev))
+
+
+def warp_kernel_phase(seed: int, dev: torch.device, kernels: list) -> None:
+    """The three kernels on the warp paths' own inputs: ``trilinear_fwd``
+    and ``trilinear_bwd_frac`` on one full-frame render through the warp
+    (``warp_frame_inputs``, with a seeded O(1) cotangent), and
+    ``trilinear_bwd`` on the warp training step's pairs; checked and
+    timed as the other input sets, added to ``kernels``' entries."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    by_name = {k["name"]: k for k in kernels}
+    frame = warp_frame_inputs(seed, dev)
+    by_name["trilinear_fwd"]["in_situ"]["warp_frame"] = fwd_set(
+        "warp frame", frame, flush)
+    levels, n = frame[1].shape
+    channels = frame[0].shape[1] // hash_paged.ROW_PAD
+    g = torch.randn((n, levels * channels),
+                    generator=torch.Generator(device=dev).manual_seed(seed + 4),
+                    device=dev)
+    by_name["trilinear_bwd_frac"]["in_situ"]["warp_frame"] = frac_set(
+        "warp frame", frame, g, flush)
+    del frame, g
+    g, page_idx, lf, meta = warp_train_inputs(seed, dev)
+    by_name["trilinear_bwd"]["sets"]["warp_train_step"] = bwd_set(
+        "warp train step", g, page_idx, lf, meta.total_pages, flush)
+
+
 def seeded_grid(cfg: Config, dev: torch.device) -> torch.Tensor:
     """bench.py's seeded ~25%-occupied [2, G, G, G] grid."""
     res = cfg.model.occ_grid_res
@@ -347,9 +447,11 @@ def batch(rng: np.random.Generator, rays: int, dev: torch.device):
     return tuple(torch.as_tensor(x, device=dev) for x in (cam, ij, gt))
 
 
-def train_step_inputs(cfg: Config, seed: int, dev: torch.device):
+def train_step_inputs(cfg: Config, seed: int, dev: torch.device,
+                      consts: dict | None = None):
     """page_idx / local_frac of one training step's samples at the bench
-    point, and a seeded O(1) cotangent of the encode output."""
+    point, and a seeded O(1) cotangent of the encode output; ``consts``:
+    the warp tables of a perspective ``cfg``."""
     poses, intr = cameras(dev)
     cam, ij, _ = batch(np.random.default_rng(seed), TRAIN_RAYS, dev)
     noise = draw_noise(cfg, STEP0, TRAIN_RAYS, dev)
@@ -358,7 +460,9 @@ def train_step_inputs(cfg: Config, seed: int, dev: torch.device):
     smp = occupancy.sample_rays_occ(
         rays_o, rays_d, seeded_occ_vals(cfg, dev), cfg.model,
         rank_u=noise.rank, within_u=noise.within, explore=noise.explore)
-    pts = contract(smp.pts.reshape(-1, 3), cfg.model.contraction_radius)
+    with torch.no_grad():
+        pts = hash_field.encode_coords(smp.pts.reshape(-1, 3), cfg.model,
+                                       (consts or {}).get("field"))
     meta = hash_field.paged_meta(cfg.model)
     page_idx, local, frac = hash_paged.page_indices(pts, meta)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -608,9 +712,12 @@ def make_trainer(cfg: Config, seed: int, dev: torch.device,
     return params, opt, make_train_step(cfg, opt)
 
 
-def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
+def training_phase(cfg: Config, seed: int, dev: torch.device,
+                   consts: dict | None = None, path: str = "training"
+                   ) -> dict:
     """bench.py's operating point through the port's training entry
-    points; step times on the host clock around synchronized steps."""
+    points; step times on the host clock around synchronized steps.
+    ``consts``: the warp tables of a perspective ``cfg``."""
     params, opt, step_fn = make_trainer(cfg, seed, dev)
     poses, intr = cameras(dev)
     grid = seeded_grid(cfg, dev)
@@ -623,7 +730,8 @@ def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     times, losses = [], []
     for k in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k])
+        grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k],
+                          consts=consts)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m.loss))
@@ -631,7 +739,7 @@ def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
             raise RuntimeError("feat_pool did not change by step 2")
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    check_launches("training", launches, ("trilinear_fwd", "trilinear_bwd"))
+    check_launches(path, launches, ("trilinear_fwd", "trilinear_bwd"))
     finite = all(bool(torch.isfinite(p).all()) for p in opt.named.values())
     if not (finite and np.all(np.isfinite(losses))):
         raise RuntimeError(f"training diverged: losses {losses}")
@@ -641,20 +749,23 @@ def training_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     mean_ms = float(np.mean(steady))
     log(f"train steps (ms): {[round(t, 2) for t in times]}; refresh steps "
         f"{[STEP0 + k for k in refresh]}")
-    log(f"train step at {TRAIN_RAYS} rays: mean {mean_ms:.2f} ms, median "
+    log(f"{path}: train step at {TRAIN_RAYS} rays: mean {mean_ms:.2f} ms, "
+        f"median "
         f"{float(np.median(steady)):.2f} ms over steps {STEP0 + STEADY_FROM}"
         f"-{STEP0 + TRAIN_STEPS - 1} -> {TRAIN_RAYS / mean_ms * 1e3:.0f} "
         f"rays/s; peak memory {peak_gb:.2f} GiB; losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}")
     prof = profile_call(lambda: step_fn(params, grid, poses, intr,
-                                        STEP0 + TRAIN_STEPS, *batches[0]),
-                        "train step")
+                                        STEP0 + TRAIN_STEPS, *batches[0],
+                                        consts=consts),
+                        f"{path} train step")
     return {"step_ms": times, "mean_ms": mean_ms,
             "median_ms": float(np.median(steady)),
             "refresh_step_ms": [times[k] for k in refresh],
             "rays_per_s": TRAIN_RAYS / mean_ms * 1e3, "peak_mem_gb": peak_gb,
             "launches": launches, "losses": losses, "profile": prof,
-            "halo": halo_times(params["field"]["feat_pool"], cfg)}
+            "halo": (halo_times(params["field"]["feat_pool"], cfg)
+                     if consts is None else None)}
 
 
 def halo_times(pool: torch.Tensor, cfg: Config) -> dict:
@@ -779,9 +890,11 @@ def o1_params(cfg: Config, seed: int, dev: torch.device) -> dict:
 
 def make_localizer(cfg: Config, seed: int, dev: torch.device,
                    params: dict | None = None, resize: int = RESIZE,
-                   where: torch.device | None = None) -> Localizer:
+                   where: torch.device | None = None,
+                   consts: dict | None = None) -> Localizer:
     """A localizer of the 850x1920 frame at ``resize`` on ``where``
-    (default ``dev``), with ``params`` (default: the init's, seeded)."""
+    (default ``dev``), with ``params`` (default: the init's, seeded) and
+    ``consts`` (the warp tables of a perspective ``cfg``)."""
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = renderer.init(g, cfg.model, 4, dev)
@@ -790,7 +903,7 @@ def make_localizer(cfg: Config, seed: int, dev: torch.device,
     return Localizer(params, cfg, intr, np.zeros(3), 1.0, FRAME_H, FRAME_W,
                      param=LocalizerParam(resize_factor=resize),
                      occ_vals=seeded_occ_vals(cfg, dev), seed=seed,
-                     device=where or dev)
+                     device=where or dev, consts=consts)
 
 
 def target_frame(loc: Localizer, shift=(0.01, -0.005, 0.02)
@@ -905,7 +1018,9 @@ def differential_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
                                     "mode-1 request")}
 
 
-def pose_check_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
+def pose_check_phase(cfg: Config, seed: int, dev: torch.device,
+                     consts: dict | None = None,
+                     grad_tol: float = 1e-2) -> dict:
     """The differential loss and pose gradient at full width on a 17x40
     frame (680 rays), on the card and on the CPU (plain versions), from
     the same O(1) params. Tolerances: loss rtol 1e-5; gradient 1e-2 of
@@ -916,10 +1031,20 @@ def pose_check_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     how far a 1e-7 shift of the translation moves the CPU gradient. CUDA
     and the CPU round the points' math differently (measured card vs
     CPU: 2.4e-3 on an NVIDIA H100 80GB HBM3). Whether two runs on the
-    card give bitwise-equal gradients is reported, not required."""
+    card give bitwise-equal gradients is reported, not required.
+
+    ``consts``: the warp tables of a perspective ``cfg``; the gradient is
+    then held to ``grad_tol`` (``WARP_POSE_TOL``), and the warp alone to
+    tight tolerances (``warp_alone_check``). The warp amplifies an ulp of
+    position near its cameras (its Lipschitz constant is O(100)), so
+    more samples cross fine-level cell edges between the card and the
+    CPU (measured on an NVIDIA H100 80GB HBM3, 700 W: card vs CPU 8.6e-2
+    of the largest entry, the CPU's own move under a 1e-7 shift
+    3.0e-2)."""
     params = o1_params(cfg, seed + 7, dev)
     locs = {name: make_localizer(cfg, seed, dev, params=params,
-                                 resize=CHECK_RESIZE, where=where)
+                                 resize=CHECK_RESIZE, where=where,
+                                 consts=consts)
             for name, where in (("cuda", dev), ("cpu", torch.device("cpu")))}
     pose, target = target_frame(locs["cuda"])
     shifted = pose.copy()
@@ -934,18 +1059,49 @@ def pose_check_phase(cfg: Config, seed: int, dev: torch.device) -> dict:
     shift_rel = float(np.abs(g_s - g_c).max()) / max(scale, 1e-30)
     loss_rel = abs(loss_a - loss_c) / abs(loss_c)
     bitwise = bool(np.array_equal(g_a, g_b))
-    log(f"pose loss and gradient on card vs CPU, "
+    log(f"{'warp ' if consts else ''}pose loss and gradient on card vs CPU, "
         f"{locs['cpu'].infer_height}x{locs['cpu'].infer_width} frame: loss "
         f"{loss_a:.6e} vs {loss_c:.6e} (rel {loss_rel:.1e}), max |d grad| / "
         f"max |grad| = {rel:.2e} (max |grad| {scale:.3e}; the CPU gradient "
         f"at the pose shifted by 1e-7: {shift_rel:.2e}); two runs on the "
-        f"card bitwise equal: {bitwise}")
-    if not (loss_rel <= 1e-5 and rel <= 1e-2):
+        f"card bitwise equal: {bitwise}; gradient tolerance {grad_tol:g}")
+    res = {"loss_cuda": loss_a, "loss_cpu": loss_c, "loss_rel": loss_rel,
+           "grad_rel": rel, "grad_scale": scale, "grad_tol": grad_tol,
+           "cpu_shift_grad_rel": shift_rel, "bitwise_equal": bitwise}
+    if consts:
+        res["warp_alone"] = warp_alone_check(consts, dev)
+    if not (loss_rel <= 1e-5 and rel <= grad_tol):
         raise RuntimeError("the pose gradient on the card disagrees with "
                            "the CPU")
-    return {"loss_cuda": loss_a, "loss_cpu": loss_c, "loss_rel": loss_rel,
-            "grad_rel": rel, "grad_scale": scale,
-            "cpu_shift_grad_rel": shift_rel, "bitwise_equal": bitwise}
+    return res
+
+
+def warp_alone_check(consts: dict, dev: torch.device) -> dict:
+    """``warp_points`` with the default blend on 65,536 seeded points
+    around the anchors, on the card and on the CPU. Tolerances: values
+    atol 1e-5 (coordinates up to 2; an ulp there is 2.4e-7), the
+    gradient of sum(sin(3 y)) 1e-4 of its largest entry (the CPU against
+    the JAX package: 1.3e-6 and 1.1e-6, ``tests/test_torch_warp.py``)."""
+    anchors = consts["field"]["warp_anchors"].cpu()
+    g = torch.Generator().manual_seed(11)
+    pick = torch.randint(0, anchors.shape[0], (65536,), generator=g)
+    pts = anchors[pick] + 0.3 * torch.randn((65536, 3), generator=g)
+    cfg = warp_cfg(Config()).model
+    outs = {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        x = pts.to(where).requires_grad_(True)
+        y = hash_field.encode_coords(x, cfg, _to(consts, where)["field"])
+        torch.sum(torch.sin(3.0 * y)).backward()
+        outs[name] = (y.detach().cpu(), x.grad.cpu())
+    val = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    scale = float(outs["cpu"][1].abs().max())
+    grad = float((outs["cuda"][1] - outs["cpu"][1]).abs().max()) / scale
+    log(f"  the warp alone on card vs CPU, 65,536 points: max |d y| = "
+        f"{val:.3e} (tol 1e-5), max |d grad| / max |grad| = {grad:.3e} "
+        f"(tol 1e-4)")
+    if not (val <= 1e-5 and grad <= 1e-4):
+        raise RuntimeError("the warp on the card disagrees with the CPU")
+    return {"max_value_err": val, "grad_rel": grad}
 
 
 def narrow_channels_check(seed: int, dev: torch.device) -> dict:
@@ -1068,6 +1224,10 @@ def _check_resumed(tr: Trainer, state: dict) -> None:
                                    f"differs from the checkpoint")
     if not torch.equal(tr.occ_grid.cpu(), state["occ_grid"]):
         raise RuntimeError("resumed occupancy grid differs")
+    live = flatten(tr.consts)
+    if set(live) != set(state["consts"]) or not all(
+            torch.equal(live[k].cpu(), v) for k, v in state["consts"].items()):
+        raise RuntimeError("resumed consts differ from the checkpoint")
 
 
 def _pose_error(reply_pose, true_world: np.ndarray) -> float:
@@ -1114,28 +1274,35 @@ def loop_vs_bare(tr: Trainer) -> dict:
             "loop_overhead_ms": loop_ms - bare_ms, "profile": prof}
 
 
-def run_directory_phase(seed: int, dev: torch.device) -> dict:
+def run_directory_phase(seed: int, dev: torch.device, warp: bool = False
+                        ) -> dict:
     """Dataset directory -> train -> run directory -> resume, test, serve,
     through the CLI and the service, with yaml and PIL unimportable (see
-    the module docstring, phase 6)."""
+    the module docstring, phases 6 and 8c). ``warp``: the corridor in
+    ``warp_mode="perspective"``, with the tables checked and a mode-2
+    request, and no loop timing."""
     t_phase = time.perf_counter()
+    name = "warp run-directory" if warp else "run-directory"
     sub = {}
     with tempfile.TemporaryDirectory() as tmp, unimportable("yaml", "PIL"):
         data, run = pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "run"
-        save_dataset(make_textured_dataset(seed=seed), data)
+        make = make_corridor_dataset if warp else make_textured_dataset
+        save_dataset(make(seed=seed), data)
         run.mkdir()
         cfg = Config.quality(end_iter=RUN_STEPS)
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, report_freq=RUN_REPORT, save_freq=RUN_STEPS // 2,
             vis_freq=RUN_STEPS))
+        if warp:
+            cfg = warp_cfg(cfg)
         cfg.save(run / "train_config.yaml")
         t_setup = time.perf_counter() - t_phase
 
         sub["train"], _ = _subpath(
-            "train", ("trilinear_fwd", "trilinear_bwd"),
+            f"{name} train", ("trilinear_fwd", "trilinear_bwd"),
             lambda: cli.main(["train", str(run), str(data)]))
         reports = _log_reports(run / "train_log.txt")
-        log("train PSNR (smoothed) per report: " + ", ".join(
+        log(f"{name}: train PSNR (smoothed) per report: " + ", ".join(
             f"{r['step']}: {r['psnr']:.3f}" for r in reports))
         if len(reports) != RUN_STEPS // RUN_REPORT:
             raise RuntimeError(f"{len(reports)} reports in train_log.txt")
@@ -1153,11 +1320,18 @@ def run_directory_phase(seed: int, dev: torch.device) -> dict:
         # second train call trains nothing
         tr = Trainer(Config.load(run / "train_config.yaml"), ds,
                      result_dir=run)
+        if warp:
+            _check_tables(tr.consts, build_warp(ds.poses, tr.cfg.model),
+                          "the trainer's")
         if not tr.try_resume():
             raise RuntimeError("try_resume found no checkpoint")
         _check_resumed(tr, ckpt_lib.restore(run / "checkpoints"))
-        log(f"resumed at step {tr.step} bitwise equal to the checkpoint; "
-            f"batch source: {tr.batch_source}")
+        if warp:
+            _check_tables(tr.consts, build_warp(ds.poses, tr.cfg.model),
+                          "the resumed trainer's")
+        log(f"{name}: resumed at step {tr.step} bitwise equal to the "
+            f"checkpoint{', tables included' if warp else ''}; batch "
+            f"source: {tr.batch_source}")
         n_log = len((run / "train_log.txt").read_text().splitlines())
         cli.main(["train", str(run), str(data)])
         if (len((run / "train_log.txt").read_text().splitlines()) != n_log
@@ -1165,7 +1339,7 @@ def run_directory_phase(seed: int, dev: torch.device) -> dict:
             raise RuntimeError("the second train call trained")
 
         sub["test"], _ = _subpath(
-            "test", ("trilinear_fwd",),
+            f"{name} test", ("trilinear_fwd",),
             lambda: cli.main(["test", str(run), str(data)]))
         summary = (run / "test_result" / "summary.tsv").read_text()
         pairs = [read_image(run / "test_result" / f"{i:08d}.png")
@@ -1173,18 +1347,21 @@ def run_directory_phase(seed: int, dev: torch.device) -> dict:
         w = pairs[0].shape[1] // 2
         test_psnr = float(np.mean([psnr(x[:, w:], x[:, :w]) for x in pairs]))
         test_ssim = float(np.mean([ssim(x[:, w:], x[:, :w]) for x in pairs]))
-        log(f"test summary.tsv: {summary.strip()!r}; renders "
+        log(f"{name}: test summary.tsv: {summary.strip()!r}; renders "
             f"{pairs[0].shape[0]}x{w}: mean PSNR {test_psnr:.3f}, SSIM "
             f"{test_ssim:.4f}")
 
         loc = Localizer.from_checkpoint(run)
+        if warp:
+            _check_tables(loc.consts, build_warp(ds.poses, cfg.model),
+                          "the localizer's")
         full = [loc.render_image(ds.poses[i]).cpu().numpy()
                 for i in range(ds.n_images)]
         view_psnr = float(np.mean([psnr(f, g) for f, g in
                                    zip(full, ds.images)]))
         view_ssim = float(np.mean([ssim(f, g) for f, g in
                                    zip(full, ds.images)]))
-        log(f"training views at {ds.height}x{ds.width}: mean PSNR "
+        log(f"{name}: training views at {ds.height}x{ds.width}: mean PSNR "
             f"{view_psnr:.3f}, SSIM {view_ssim:.4f}")
 
         svc = LocalizerService(loc)
@@ -1193,37 +1370,51 @@ def run_directory_phase(seed: int, dev: torch.device) -> dict:
         moved[:3, 3] += POSE_SHIFT
         image = ds.images[SERVE_VIEW].tolist()
         requests = {}
-        for mode, used in ((0, ("trilinear_fwd",)),
-                           (1, ("trilinear_fwd", "trilinear_bwd_frac"))):
+        modes = [(0, ("trilinear_fwd",)),
+                 (1, ("trilinear_fwd", "trilinear_bwd_frac"))]
+        if warp:
+            modes.append((2, ("trilinear_fwd", "trilinear_bwd_frac")))
+        for mode, used in modes:
             if not svc.handle({"cmd": "init_pose",
                                "pose": moved.tolist()})["ok"]:
                 raise RuntimeError("init_pose failed")
-            req = {"cmd": "localize", "image": image, "mode": mode,
-                   "particle_num": PARTICLES}
-            sub[f"mode{mode}"], r = _subpath(f"mode {mode}", used,
+            req = {"cmd": "localize", "image": image, "mode": mode}
+            if mode == 0:
+                req["particle_num"] = PARTICLES
+            torch.cuda.reset_peak_memory_stats(dev)
+            sub[f"mode{mode}"], r = _subpath(f"{name} mode {mode}", used,
                                              lambda: svc.handle(req))
-            check_reply(r, f"run-directory mode-{mode} request")
+            check_reply(r, f"{name} mode-{mode} request")
             requests[mode] = {
                 "position_error_before": _pose_error(moved, true_world),
                 "position_error_after": _pose_error(r["pose"], true_world),
                 "score": r["score"],
-                "ms": sub[f"mode{mode}"]["wall_s"] * 1e3}
-            log(f"mode-{mode} request on view {SERVE_VIEW}: position error "
-                f"{requests[mode]['position_error_before']:.4f} -> "
+                "ms": sub[f"mode{mode}"]["wall_s"] * 1e3,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+            log(f"{name}: mode-{mode} request on view {SERVE_VIEW}: position "
+                f"error {requests[mode]['position_error_before']:.4f} -> "
                 f"{requests[mode]['position_error_after']:.4f} (world units), "
-                f"score {r['score']:.4g}, {requests[mode]['ms']:.1f} ms")
+                f"score {r['score']:.4g}, {requests[mode]['ms']:.1f} ms, "
+                f"peak memory {requests[mode]['peak_mem_gb']:.2f} GiB")
 
-        timing = loop_vs_bare(tr)
+        timing = None if warp else loop_vs_bare(tr)
         batch_source = tr.batch_source
         tr.close()
     wall_s = time.perf_counter() - t_phase
-    log(f"run-directory phase: {wall_s:.1f} s (set-up {t_setup:.1f} s, "
+    log(f"{name} phase: {wall_s:.1f} s (set-up {t_setup:.1f} s, "
         f"train {sub['train']['wall_s']:.1f} s for {RUN_STEPS} steps)")
     return {"subpaths": sub, "reports": reports, "test_summary": summary,
             "test_psnr": test_psnr, "test_ssim": test_ssim,
             "view_psnr": view_psnr, "view_ssim": view_ssim,
             "requests": requests, "timing": timing,
             "batch_source": batch_source, "wall_s": wall_s}
+
+
+def _check_tables(consts: dict, ref, whose: str) -> None:
+    """``consts`` hold the tables ``ref`` (``build_warp``) bitwise."""
+    for key, arr in (("warp_anchors", ref.anchors), ("warp_rows", ref.rows)):
+        if not np.array_equal(consts["field"][key].cpu().numpy(), arr):
+            raise RuntimeError(f"{whose} {key} differ from build_warp's")
 
 
 def profile_call(fn, what: str) -> dict:
@@ -1255,15 +1446,44 @@ def profile_call(fn, what: str) -> dict:
         f"{device_ms:.2f} ms (busy {device_ms / wall_ms:.1%})")
     for name, ms in top:
         log(f"  {ms:8.3f} ms  {name[:100]}")
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "top": [[name[:60], ms] for name, ms in top]}
+    res = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "top": [[name[:60], ms] for name, ms in top]}
+    warp = scope_ms(prof, "warp_points")
+    if warp["calls"]:
+        log(f"  the warp (warp_points, {warp['calls']} calls): "
+            f"{warp['device_ms']:.3f} ms of device kernels: "
+            + ", ".join(f"{op} {ms:.3f}" for op, ms in warp["ops"].items()))
+        res["warp"] = warp
+    return res
 
 
-def cross_check_phase(cfg: Config, seed: int, dev: torch.device) -> None:
+def scope_ms(prof, name: str) -> dict:
+    """The device time of the kernels launched inside every
+    ``record_function(name)`` range of a profile (forward only: autograd
+    runs a backward outside the range), in all and by the range's
+    direct child ops."""
+    ops, calls = {}, 0
+    for evt in prof.events():
+        if evt.name != name or evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        calls += 1
+        for child in evt.cpu_children:
+            us = getattr(child, "device_time_total", None)
+            if us is None:
+                us = child.cuda_time_total
+            ops[child.name] = ops.get(child.name, 0.0) + us / 1e3
+    ops = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+    return {"calls": calls, "device_ms": sum(ops.values()), "ops": ops}
+
+
+def cross_check_phase(cfg: Config, seed: int, dev: torch.device,
+                      consts: dict | None = None) -> dict:
     """512 rays through the renderer on the card and on the CPU, with
-    O(1) features. Tolerance 1e-3: CUDA and CPU round transcendental
-    functions differently, and the finest level (scale 1024) turns an
-    ulp of sample position into ~1e-4 of cell fraction."""
+    O(1) features (``consts``: the warp tables of a perspective ``cfg``).
+    Tolerance 1e-3: CUDA and CPU round transcendental functions
+    differently, and the finest level (scale 1024) turns an ulp of sample
+    position into ~1e-4 of cell fraction."""
+    what = "warp render" if consts else "render"
     params = o1_params(cfg, seed + 1, dev)
     occ_vals = seeded_occ_vals(cfg, dev)
     rng = np.random.default_rng(seed)
@@ -1274,16 +1494,18 @@ def cross_check_phase(cfg: Config, seed: int, dev: torch.device) -> None:
         with torch.no_grad():
             res = renderer.render(_to(params, where), o.to(where),
                                   d.to(where), cfg.model,
-                                  occ_vals=occ_vals.to(where))
+                                  occ_vals=occ_vals.to(where),
+                                  consts=_to(consts or {}, where))
         outs[name] = (res.colors.cpu(), res.depths.cpu())
     dc = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
     dd = float(((outs["cuda"][1] - outs["cpu"][1]).abs()
                 / (outs["cpu"][1].abs() + 1e-3)).max())
-    log(f"render on card vs CPU, 512 rays: max |d color| = {dc:.3e}, "
-        f"max rel d depth = {dd:.3e}; color std "
-        f"{float(outs['cpu'][0].std()):.3f}")
+    std = float(outs["cpu"][0].std())
+    log(f"{what} on card vs CPU, 512 rays: max |d color| = {dc:.3e}, "
+        f"max rel d depth = {dd:.3e}; color std {std:.3f}")
     if not (dc <= 1e-3 and dd <= 1e-3):
-        raise RuntimeError("render on the card disagrees with the CPU")
+        raise RuntimeError(f"{what} on the card disagrees with the CPU")
+    return {"max_color_err": dc, "max_rel_depth_err": dd, "color_std": std}
 
 
 def main() -> int:
@@ -1312,25 +1534,62 @@ def main() -> int:
                                        "spill")):
                 log(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
+    failed = []
+
+    def phase(name, fn, *a, **kw):
+        """Run one phase; a failure is logged and the script goes on, so
+        that one run shows every phase's numbers, then exits non-zero."""
+        try:
+            return fn(*a, **kw)
+        except Exception:                   # noqa: BLE001 — report, go on
+            traceback.print_exc()
+            log(f"PHASE FAILED: {name}")
+            failed.append(name)
+            return None
+
     cfg = Config()
     situ = in_situ_inputs(cfg, args.seed, dev)
     kernels = [kernel_phase(cfg, args.seed, dev, situ),
                bwd_kernel_phase(train_cfg(TRAIN_RAYS), args.seed, dev),
                frac_kernel_phase(cfg, args.seed, dev, situ)]
     del situ
+    phase("warp kernels", warp_kernel_phase, args.seed, dev, kernels)
     narrow = narrow_channels_check(args.seed, dev)
     for k in kernels:
         k["max_abs_err_c3"] = narrow[k["name"]]
-    paths = {"serving": serving_phase(cfg, args.seed, dev),
-             "training": training_phase(train_cfg(TRAIN_RAYS), args.seed,
-                                        dev),
-             "differential": differential_phase(cfg, args.seed, dev)}
-    run_dir = run_directory_phase(args.seed, dev)
-    for name, res in run_dir.pop("subpaths").items():
-        paths[f"run_directory/{name}"] = res
-    cross_check_phase(cfg, args.seed, dev)
-    step_check = step_check_phase(args.seed, dev)
-    pose_check = pose_check_phase(cfg, args.seed, dev)
+    paths = {"serving": phase("serving", serving_phase, cfg, args.seed, dev),
+             "training": phase("training", training_phase,
+                               train_cfg(TRAIN_RAYS), args.seed, dev),
+             "differential": phase("differential", differential_phase, cfg,
+                                   args.seed, dev)}
+    wcfg = warp_cfg(train_cfg(TRAIN_RAYS))
+    paths["warp/training"] = phase(
+        "warp training", training_phase, wcfg, args.seed, dev,
+        consts=bench_warp_consts(wcfg, dev), path="warp/training")
+    runs = {}
+    for prefix, warp in (("", False), ("warp/", True)):
+        res = phase(f"{prefix}run directory", run_directory_phase, args.seed,
+                    dev, warp=warp)
+        if res is not None:
+            for name, sub in res.pop("subpaths").items():
+                paths[f"{prefix}run_directory/{name}"] = sub
+        runs[f"{prefix}run_directory"] = res
+    corridor = make_corridor_dataset(seed=args.seed)
+    ccfg = warp_cfg(cfg)
+    cconsts = warp_consts(corridor.poses, ccfg.model, dev)
+    checks = {
+        "render": phase("render check", cross_check_phase, cfg, args.seed,
+                        dev),
+        "warp render": phase("warp render check", cross_check_phase, ccfg,
+                             args.seed, dev, consts=cconsts),
+        "step": phase("step check", step_check_phase, args.seed, dev),
+        "pose": phase("pose check", pose_check_phase, cfg, args.seed, dev),
+        "warp pose": phase("warp pose check", pose_check_phase, ccfg,
+                           args.seed, dev, consts=cconsts,
+                           grad_tol=WARP_POSE_TOL)}
+    if failed:
+        log(f"chip_smoke: failed phases {failed}")
+        return 1
 
     for k in kernels:
         by_path = {path: res["launches"][k["name"]]
@@ -1339,9 +1598,10 @@ def main() -> int:
         k["launches_by_path"] = by_path
     for path, res in paths.items():
         log(f"{path}: {json.dumps(res)}")
-    log(f"run directory: {json.dumps(run_dir)}")
-    log(f"step check: {json.dumps(step_check)}")
-    log(f"pose check: {json.dumps(pose_check)}")
+    for name, res in runs.items():
+        log(f"{name}: {json.dumps(res)}")
+    for name, res in checks.items():
+        log(f"{name} check: {json.dumps(res)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,13 @@ The JAX params pytree (``f2nerf_tpu/models/renderer.py:57-63``) is
 * ``app_emb`` [n_images, 16]
 
 The port keeps that layout and applies weights as ``x @ w``, so every
-array is carried over unchanged (no transposes). The occupancy grid
-([2, G, G, G]) carries over as it is, and the optax state of
+array is carried over unchanged (no transposes). The non-trained
+``consts`` tree (``renderer.init``'s second output; in
+``warp_mode="perspective"`` the warp tables ``field.warp_anchors``
+[M, 3] and ``field.warp_rows`` [M, 128] that the JAX ``Trainer`` adds)
+carries over the same way, as a dict of its own: the port keeps it out
+of ``params`` and so out of Adam. The occupancy grid ([2, G, G, G])
+carries over as it is, and the optax state of
 ``f2nerf_tpu.train.optim.make_optimizer`` maps onto the port's
 ``train.optim.Optimizer`` (Adam moments, count and schedule count).
 """
@@ -36,6 +41,14 @@ def params_from_numpy(tree: Mapping[str, Any],
             out[k] = torch.tensor(np.asarray(v, dtype=np.float32),
                                   device=device)
     return out
+
+
+def consts_from_numpy(tree: Mapping[str, Any],
+                      device: torch.device | str) -> dict[str, Any]:
+    """The JAX consts tree (after ``jax.tree.map(np.asarray, consts)``)
+    -> the port's consts: the same nesting, float32 tensors on
+    ``device`` (``{"field": {}}`` in contract mode)."""
+    return params_from_numpy(tree, device)
 
 
 def occ_grid_from_numpy(grid: Any, device: torch.device | str

@@ -38,7 +38,7 @@ class ModelConfig:
     contraction_radius: float = 1.0
     hash_feat_dim: int = 16
     density_shift: float = 3.0
-    warp_mode: str = "contract"     # 'contract' (ported) | 'perspective'
+    warp_mode: str = "contract"     # 'contract' | 'perspective' (both ported)
     warp_n_regions: int = 64
     warp_n_cams: int = 4
     warp_blend_k: int = 3

@@ -147,16 +147,23 @@ class Localizer:
                  width: int, param: LocalizerParam | None = None,
                  occ_vals: torch.Tensor | None = None,
                  seed: int | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 consts: dict[str, Any] | None = None):
         """``params``: the port's params dict (see ``convert``);
         ``occ_vals``: ``occupancy.occ_values`` of the trained grid, needed
-        when the config samples by occupancy. Runs on ``cuda`` unless
-        ``device`` says otherwise, and raises if there is no card."""
+        when the config samples by occupancy; ``consts``: the non-trained
+        constants, ``{"field": {"warp_anchors", "warp_rows"}}``, which
+        ``warp_mode="perspective"`` needs (raises without them). Runs on
+        ``cuda`` unless ``device`` says otherwise, and raises if there is
+        no card."""
         self.device = resolve_device(device)
         self.param = param or LocalizerParam()
         if self.param.sample_near is not None:
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, sample_near=float(self.param.sample_near)))
+        consts = consts or {}
+        hash_field.check_consts(cfg.model, consts.get("field"))
+        self.consts = _to_device(consts, self.device)
         self.cfg = cfg
         params = _to_device(params, self.device)
         # params never change while serving, so the haloed table is built
@@ -190,23 +197,31 @@ class Localizer:
           the JAX localizer reads its newest checkpoint;
         * ``torch_params.npz``, a converted JAX run: the params tree
           flattened by ``convert.flatten`` ("field/feat_pool",
-          "field/mlp/w", ..., "app_emb") plus the occupancy grid as
-          "occ_grid". A JAX run's Orbax checkpoint becomes that file by
-          ``np.savez`` of its restored leaves, with the JAX package
-          installed::
+          "field/mlp/w", ..., "app_emb"), the occupancy grid as
+          "occ_grid" and, for a perspective-warp run, the warp tables as
+          "consts/field/warp_anchors" and "consts/field/warp_rows". A JAX
+          run's Orbax checkpoint becomes that file by ``np.savez`` of its
+          restored leaves, with the JAX package installed::
 
               state = f2nerf_tpu.train.checkpoint.restore(run / "checkpoints", template)
               flat = convert.flatten(jax.tree.map(np.asarray, state["params"]))
               flat["occ_grid"] = np.asarray(state["extra"]["occ_grid"])
+              flat.update(convert.flatten(
+                  jax.tree.map(np.asarray, state["consts"]), "consts/"))
               np.savez(run / "torch_params.npz", **flat)
 
           where ``template`` is built as in the JAX
-          ``Localizer.from_checkpoint``.
+          ``Localizer.from_checkpoint``, plus, in perspective mode, the
+          tables in its ``consts`` as the JAX ``Trainer`` builds them
+          (``train/loop.py:90-94``: ``build_warp`` of the training
+          poses); without them Orbax refuses a warp run's checkpoint.
 
-        Raises ``FileNotFoundError`` naming both when neither exists.
+        Raises ``FileNotFoundError`` naming both when neither exists, and
+        ``ValueError`` for a perspective-warp run without its tables.
         Reads no ``yaml`` (``core/yaml_io.py``).
         """
-        from f2nerf_tpu_torch.convert import params_from_numpy, unflatten
+        from f2nerf_tpu_torch.convert import (consts_from_numpy,
+                                              params_from_numpy, unflatten)
         from f2nerf_tpu_torch.core import yaml_io
         from f2nerf_tpu_torch.models import occupancy
         from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
@@ -220,12 +235,17 @@ class Localizer:
             state = ckpt_lib.restore(d / "checkpoints")
             params = unflatten({k: v.to(dev)
                                 for k, v in state["params"].items()})
+            consts = unflatten(state["consts"])
             occ_grid = state["occ_grid"]
         elif npz.is_file():
             with np.load(npz) as data:
                 flat = {k: data[k] for k in data.files}
             occ_grid = flat.pop("occ_grid", None)
+            consts = unflatten({k.removeprefix("consts/"): flat.pop(k)
+                                for k in list(flat)
+                                if k.startswith("consts/")})
             params = params_from_numpy(unflatten(flat), dev)
+            consts = consts_from_numpy(consts, dev)
         else:
             raise FileNotFoundError(
                 f"{d} holds neither a checkpoint of the port's trainer "
@@ -243,7 +263,7 @@ class Localizer:
                    np.array(ip["normalizing_center"], dtype=np.float32),
                    float(ip["normalizing_radius"]), ip["height"],
                    ip["width"], param=param, occ_vals=occ_vals,
-                   device=dev)
+                   device=dev, consts=consts)
 
     # -- rendering ---------------------------------------------------------
     @torch.inference_mode()
@@ -255,7 +275,7 @@ class Localizer:
             self.params, pose_t, self.intrinsic, self.infer_height,
             self.infer_width, self.cfg.model,
             chunk=min(65536, self.infer_height * self.infer_width),
-            occ_vals=self.occ_vals)
+            occ_vals=self.occ_vals, consts=self.consts)
         return rgb
 
     # -- particle search ---------------------------------------------------
@@ -279,7 +299,7 @@ class Localizer:
         colors, _ = renderer.render_rays_chunked(
             self.params, rays_o.reshape(p * pix, 3),
             rays_d.reshape(p * pix, 3), self.cfg.model, chunk=65536,
-            occ_vals=self.occ_vals)
+            occ_vals=self.occ_vals, consts=self.consts)
         pred = torch.clamp(colors.reshape(p, pix, 3), 0.0, 1.0)
         gt = torch.as_tensor(
             np.asarray(image, dtype=np.float32).reshape(h * w, 3)[sel],
@@ -334,7 +354,8 @@ class Localizer:
             rays_o, rays_d = rays_from_pose(pose[None], self.intrinsic[None],
                                             ij)
             res = renderer.render(self.params, rays_o, rays_d,
-                                  self.cfg.model, occ_vals=self.occ_vals)
+                                  self.cfg.model, occ_vals=self.occ_vals,
+                                  consts=self.consts)
             loss = torch.sum((res.colors - gt) ** 2) / (ij.shape[0] * 3)
             loss.backward()
         return float(loss.detach())

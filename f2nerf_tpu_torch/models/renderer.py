@@ -6,7 +6,10 @@ the reference's two-pass early-stop compaction; it is exact because the
 keep mask is a prefix of each ray (ops/composite.py).
 
 Params are a plain dict with the JAX package's layout:
-``{"field": {...}, "shader": {...}, "app_emb": [n_images, 16]}``.
+``{"field": {...}, "shader": {...}, "app_emb": [n_images, 16]}``. The
+non-trained constants are a second dict shaped like the JAX package's
+``consts``: ``{"field": {"warp_anchors", "warp_rows"}}`` in perspective
+mode, ``{}`` or None otherwise.
 The dense sampler's two-pass TRAIN path (``dense_two_pass``, off by
 default) is not ported.
 """
@@ -48,13 +51,19 @@ def init(generator: torch.Generator, cfg: ModelConfig, n_images: int,
     }
 
 
+def _field_consts(consts: Params | None) -> Params | None:
+    return None if consts is None else consts.get("field")
+
+
 def density_at(params: Params, points: torch.Tensor, cfg: ModelConfig,
-               contracted: bool = False) -> torch.Tensor:
+               contracted: bool = False,
+               consts: Params | None = None) -> torch.Tensor:
     """[N, 3] points -> [N] sigma (the occupancy refresh runs it under
     ``torch.no_grad()``; the global-sparsity loss differentiates it).
     ``contracted=True`` for points already in contracted space."""
     feat = hash_field.query(params["field"], points, cfg,
-                            pre_contracted=contracted)
+                            pre_contracted=contracted,
+                            consts=_field_consts(consts))
     return density_activation(feat[..., 0], cfg.density_shift)
 
 
@@ -63,7 +72,7 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
            level_weights: torch.Tensor | None = None,
            eval_emb: torch.Tensor | None = None,
            emb_idx: torch.Tensor | None = None,
-           noise=None) -> RenderResult:
+           noise=None, consts: Params | None = None) -> RenderResult:
     """Render a batch of rays.
 
     VALIDATE (``noise`` None): no jitter, grey (0.5) background, and the
@@ -109,15 +118,17 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
     else:
         emb = None if eval_emb is None else eval_emb[None, None, :]
     return _render_samples(params, smp.pts, smp.dirs, smp.t, smp.dt,
-                           explore, bg_color, cfg, level_weights, emb)
+                           explore, bg_color, cfg, level_weights, emb,
+                           consts)
 
 
 def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,
-                    level_weights, emb=None) -> RenderResult:
+                    level_weights, emb=None, consts=None) -> RenderResult:
     """Field query + shading + masked compositing over [R, S] samples."""
     r, s = pts.shape[0], pts.shape[1]
     feat = hash_field.query_rays(params["field"], pts, cfg,
-                                 level_weights=level_weights)  # [R, S, F]
+                                 level_weights=level_weights,
+                                 consts=_field_consts(consts))  # [R, S, F]
     sigma = density_activation(feat[..., 0], cfg.density_shift)
     # shading feature: [1, feat_1..F-1] (renderer.cpp:95-99)
     shading_feat = torch.cat([torch.ones_like(feat[..., :1]),
@@ -142,14 +153,15 @@ def render_rays_chunked(params: Params, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, cfg: ModelConfig,
                         chunk: int = 8192,
                         occ_vals: torch.Tensor | None = None,
-                        eval_emb: torch.Tensor | None = None
+                        eval_emb: torch.Tensor | None = None,
+                        consts: Params | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """VALIDATE-mode render of many rays in chunks of ``chunk`` rays
     (reference Renderer::render_all_rays, src/renderer.cpp:125-151)."""
     outs_c, outs_d = [], []
     for i in range(0, rays_o.shape[0], chunk):
         res = render(params, rays_o[i:i + chunk], rays_d[i:i + chunk], cfg,
-                     occ_vals=occ_vals, eval_emb=eval_emb)
+                     occ_vals=occ_vals, eval_emb=eval_emb, consts=consts)
         outs_c.append(res.colors)
         outs_d.append(res.depths)
     return torch.cat(outs_c, 0), torch.cat(outs_d, 0)
@@ -159,7 +171,8 @@ def render_image(params: Params, pose: torch.Tensor, intrinsic: torch.Tensor,
                  h: int, w: int, cfg: ModelConfig, chunk: int = 8192,
                  occ_vals: torch.Tensor | None = None,
                  eval_emb: torch.Tensor | None = None,
-                 supersample: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                 supersample: int = 1, consts: Params | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render a full image; returns (rgb [H, W, 3] clipped, depth [H, W]).
 
     ``supersample=k`` renders k*h x k*w through scaled intrinsics and
@@ -177,7 +190,7 @@ def render_image(params: Params, pose: torch.Tensor, intrinsic: torch.Tensor,
     rays_o, rays_d = rays_from_pose(pose[None], intrinsic[None], ij)
     colors, depths = render_rays_chunked(params, rays_o, rays_d, cfg,
                                          chunk=chunk, occ_vals=occ_vals,
-                                         eval_emb=eval_emb)
+                                         eval_emb=eval_emb, consts=consts)
     rgb = torch.clamp(colors.reshape(hh, ww, 3), 0.0, 1.0)
     depth = depths.reshape(hh, ww)
     if k > 1:

@@ -7,7 +7,10 @@ The JAX package saves with Orbax; the port saves one ``torch.save`` file,
 * ``adam``: the ``Optimizer``'s torch Adam ``state_dict`` (moments and
   per-param step) and ``count``, its schedule's update count;
 * ``step``: the training step;
-* ``occ_grid``: the occupancy grid (or None).
+* ``occ_grid``: the occupancy grid (or None);
+* ``consts``: the flattened non-trained constants (the warp tables,
+  "field/warp_anchors" and "field/warp_rows", in perspective mode; empty
+  otherwise). A checkpoint written without the key reads as ``{}``.
 
 It is read back onto the CPU with ``torch.load(weights_only=True)``,
 which unpickles only tensors and plain containers. The file is written
@@ -41,16 +44,18 @@ def all_steps(ckpt_dir: str | pathlib.Path) -> list[int]:
 
 def save(ckpt_dir: str | pathlib.Path, step: int, params: dict[str, Any],
          optimizer, occ_grid: torch.Tensor | None = None,
-         keep_last: int = 2) -> None:
+         keep_last: int = 2, consts: dict[str, Any] | None = None) -> None:
     """Save ``params`` (nested or flat dict of tensors), ``optimizer``
-    (a ``train.optim.Optimizer``) and ``occ_grid`` as step ``step``;
-    keep the newest ``keep_last`` checkpoints (0 keeps all)."""
+    (a ``train.optim.Optimizer``), ``occ_grid`` and ``consts`` as step
+    ``step``; keep the newest ``keep_last`` checkpoints (0 keeps all)."""
     path = pathlib.Path(ckpt_dir).resolve() / f"step_{step:08d}"
     path.mkdir(parents=True, exist_ok=True)
     state = {"step": int(step),
              "params": {k: v.detach() for k, v in flatten(params).items()},
              "adam": optimizer.adam.state_dict(),
-             "count": int(optimizer.count), "occ_grid": occ_grid}
+             "count": int(optimizer.count), "occ_grid": occ_grid,
+             "consts": {k: v.detach()
+                        for k, v in flatten(consts or {}).items()}}
     tmp = path / (STATE_FILE + ".tmp")
     torch.save(state, tmp)
     os.replace(tmp, path / STATE_FILE)
@@ -68,11 +73,14 @@ def latest_step(ckpt_dir: str | pathlib.Path) -> int | None:
 def restore(ckpt_dir: str | pathlib.Path, step: int | None = None
             ) -> dict[str, Any]:
     """The checkpoint of ``step`` (default: the newest) as saved, on the
-    CPU: {"step", "params" (flat), "adam", "count", "occ_grid"}."""
+    CPU: {"step", "params" (flat), "adam", "count", "occ_grid",
+    "consts" (flat)}."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = (pathlib.Path(ckpt_dir).resolve() / f"step_{step:08d}"
             / STATE_FILE)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state.setdefault("consts", {})
+    return state

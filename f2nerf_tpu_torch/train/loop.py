@@ -9,8 +9,8 @@ as the JAX loop does:
   ``report_freq`` steps (:138-153);
 * vis PNGs ``[gt | pred | depth]`` every ``vis_freq`` steps (:111-130);
 * checkpoints every ``save_freq`` steps, with the optimizer state, the
-  step and the occupancy grid, so training truly resumes
-  (``train/checkpoint.py``);
+  step, the occupancy grid and the non-trained constants, so training
+  truly resumes (``train/checkpoint.py``);
 * ``train_config.yaml`` and ``inference_params.yaml`` written into the
   run directory at start.
 
@@ -39,11 +39,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from f2nerf_tpu_torch.convert import params_from_numpy
+from f2nerf_tpu_torch.convert import params_from_numpy, unflatten
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.data.dataset import Dataset
 from f2nerf_tpu_torch.models import occupancy, renderer
+from f2nerf_tpu_torch.models.warp import warp_consts
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
 from f2nerf_tpu_torch.train.step import StepNoise, draw_noise, make_train_step
@@ -72,6 +73,10 @@ def resolve_sample_near(cfg: Config, dataset: Dataset) -> Config:
 class Trainer:
     """Trains the field on ``dataset``; runs on ``cuda`` unless ``device``
     says otherwise.
+
+    ``consts`` holds the renderer's non-trained constants: in
+    ``warp_mode="perspective"`` the warp tables built from
+    ``dataset.poses`` (JAX ``train/loop.py:90-94``), else ``{}``.
 
     ``params``: start from these (a nested dict of numpy arrays, e.g. a
     JAX run's params) instead of a seeded init. ``noise_fn(step, n_rays)
@@ -109,6 +114,7 @@ class Trainer:
                                         self.device)
         else:
             self.params = params_from_numpy(params, self.device)
+        self.consts = warp_consts(dataset.poses, cfg.model, self.device)
         self.optimizer = make_optimizer(self.params, cfg.train)
         self.occ_grid = occupancy.init_grid(cfg.model, self.device)
         self.step = 0
@@ -161,7 +167,8 @@ class Trainer:
         if self.result_dir is None:
             return
         ckpt_lib.save(self.result_dir / "checkpoints", self.step,
-                      self.params, self.optimizer, self.occ_grid)
+                      self.params, self.optimizer, self.occ_grid,
+                      consts=self.consts)
 
     def try_resume(self) -> bool:
         """Adopt the newest checkpoint of the run directory, if any."""
@@ -188,6 +195,9 @@ class Trainer:
         self.occ_grid = (None if occ_grid is None
                          else occ_grid.to(self.device))
         self.step = int(state["step"])
+        if state["consts"]:
+            self.consts = unflatten({k: v.to(self.device)
+                                     for k, v in state["consts"].items()})
 
     def _recover(self) -> bool:
         """After a NaN loss: restore the newest checkpoint whose params,
@@ -255,7 +265,8 @@ class Trainer:
             self.occ_grid, metrics = self._step_fn(
                 self.params, self.occ_grid, self.poses, self.intrinsics,
                 self.step, cam_idx, ij, gt,
-                noise=self._noise_fn(self.step, cam_idx.shape[0]))
+                noise=self._noise_fn(self.step, cam_idx.shape[0]),
+                consts=self.consts)
             self.step += 1
             pending.append(metrics)
 
@@ -344,7 +355,7 @@ class Trainer:
         rgb, depth = renderer.render_image(
             self.params, self.poses[0], self.intrinsics[0], ds.height,
             ds.width, self.cfg.model, chunk=self.cfg.train.ray_batch_size,
-            occ_vals=self.occ_bits())
+            occ_vals=self.occ_bits(), consts=self.consts)
         depth3 = np.repeat(depth.cpu().numpy()[..., None], 3, axis=-1)
         concat = np.concatenate([ds.images[0], rgb.cpu().numpy(), depth3],
                                 axis=1)

@@ -16,7 +16,7 @@ step's draws are made up front into a :class:`StepNoise`; a caller may
 pass its own (the tests give the JAX package's draws).
 
 ``grad_blocks > 0`` (the shard-count-invariant multi-chip mode) is not
-ported: it belongs to the multi-GPU item of the roadmap (ROADMAP A8).
+ported: it belongs to the multi-GPU item of the roadmap (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -141,7 +141,8 @@ def make_loss_fn(cfg: Config):
     def loss_fn(params: dict[str, Any], poses: torch.Tensor,
                 intrinsics: torch.Tensor, cam_idx: torch.Tensor,
                 ij: torch.Tensor, gt: torch.Tensor, noise: StepNoise,
-                step: int, occ_vals: torch.Tensor | None
+                step: int, occ_vals: torch.Tensor | None,
+                consts: dict[str, Any] | None = None
                 ) -> tuple[torch.Tensor, StepMetrics]:
         cam = cam_idx.long()
         rays_o, rays_d = rays_from_pose(poses[cam], intrinsics[cam],
@@ -151,7 +152,7 @@ def make_loss_fn(cfg: Config):
                               occ_vals=occ_vals,
                               level_weights=_level_weights(cfg, step,
                                                            rays_o.device),
-                              emb_idx=emb_idx, noise=noise)
+                              emb_idx=emb_idx, noise=noise, consts=consts)
         # Charbonnier color loss (train_manager.cpp:78)
         color_loss = torch.mean(torch.sqrt((res.colors - gt) ** 2 + 1e-4))
         if cfg.train.var_loss_mode == "distortion":
@@ -186,7 +187,7 @@ def make_loss_fn(cfg: Config):
             in_dom = (torch.linalg.vector_norm(gpts, dim=-1)
                       < dom_r * 0.999).float()
             sig = renderer.density_at(params, gpts, cfg.model,
-                                      contracted=True)
+                                      contracted=True, consts=consts)
             gs = torch.log1p(torch.clamp(sig, 0.0, 1e4)) * in_dom
             gs_loss = torch.sum(gs) / torch.clamp_min(torch.sum(in_dom), 1.0)
             loss = loss + cfg.train.global_sparsity_weight * gs_loss
@@ -202,18 +203,20 @@ def make_train_step(cfg: Config, optimizer: Optimizer):
     """Build the step
 
         train_step(params, occ_grid, poses, intrinsics, step, cam_idx, ij,
-                   gt, noise=None) -> (occ_grid, metrics)
+                   gt, noise=None, consts=None) -> (occ_grid, metrics)
 
     which refreshes the occupancy grid on its cadence (with the params
     before the update, under ``torch.no_grad()``), renders and scores the
     batch, and updates ``params`` in place through ``optimizer`` (made
     for the same params dict). The grads stay in the leaves' ``.grad``
-    until the next step. ``noise`` defaults to :func:`draw_noise`.
+    until the next step. ``noise`` defaults to :func:`draw_noise`;
+    ``consts`` are the renderer's non-trained constants (the warp tables
+    in perspective mode).
     """
     if cfg.train.grad_blocks > 0:
         raise NotImplementedError(
             "grad_blocks > 0 (shard-count-invariant gradients) belongs to "
-            "the multi-GPU item of the roadmap (ROADMAP A8)")
+            "the multi-GPU item of the roadmap (ROADMAP A11)")
     loss_fn = make_loss_fn(cfg)
     use_occ = cfg.model.sampler_mode == "occ"
     scale = float(cfg.train.loss_scale)
@@ -221,7 +224,8 @@ def make_train_step(cfg: Config, optimizer: Optimizer):
     def train_step(params: dict[str, Any], occ_grid: torch.Tensor | None,
                    poses: torch.Tensor, intrinsics: torch.Tensor, step: int,
                    cam_idx: torch.Tensor, ij: torch.Tensor, gt: torch.Tensor,
-                   noise: StepNoise | None = None
+                   noise: StepNoise | None = None,
+                   consts: dict[str, Any] | None = None
                    ) -> tuple[torch.Tensor | None, StepMetrics]:
         if noise is None:
             noise = draw_noise(cfg, step, cam_idx.shape[0], poses.device)
@@ -233,7 +237,8 @@ def make_train_step(cfg: Config, optimizer: Optimizer):
                     occ_grid = occupancy.update_grid(
                         occ_grid,
                         lambda pts: renderer.density_at(
-                            params, pts, cfg.model, contracted=True),
+                            params, pts, cfg.model, contracted=True,
+                            consts=consts),
                         cfg.model, phase=phase, u=noise.refresh)
             # sigma-valued occupancy; warmup forces everything occupied
             occ_vals = occupancy.occ_values(
@@ -241,7 +246,7 @@ def make_train_step(cfg: Config, optimizer: Optimizer):
                 warmup=step < cfg.model.occ_warmup_steps)
         optimizer.zero_grad()
         loss, metrics = loss_fn(params, poses, intrinsics, cam_idx, ij, gt,
-                                noise, step, occ_vals)
+                                noise, step, occ_vals, consts)
         # static loss scaling (reference fp16 kernels' x128); metrics
         # stay unscaled
         (loss * scale).backward()

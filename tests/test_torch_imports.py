@@ -46,9 +46,9 @@ def test_port_module_list_is_complete():
     assert "f2nerf_tpu_torch.train.optim" in PORT_MODULES
     for name in ("data.dataset", "data.synthetic", "data.native_loader",
                  "train.loop", "train.checkpoint", "apps.main",
-                 "core.yaml_io", "utils.timer"):
+                 "core.yaml_io", "utils.timer", "models.warp"):
         assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
-    assert len(PORT_MODULES) >= 31
+    assert len(PORT_MODULES) >= 32
 
 
 @pytest.fixture(scope="module")

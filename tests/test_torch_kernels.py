@@ -34,7 +34,10 @@ entry, long runs and one run through every tile, at every C and L in
 of real renders at the full ``Config()`` width
 (``chip_smoke.in_situ_inputs``), whose rays make neighbouring lanes
 gather from neighbouring cells, and ``trilinear_bwd`` on one training
-step's (``chip_smoke.train_step_inputs``). C = 3, which the kernels are
+step's (``chip_smoke.train_step_inputs``); the ``*_in_situ_warp`` cases
+run them on the inputs of the perspective-warp paths (a full-frame
+render at a corridor view, ``chip_smoke.warp_frame_inputs``, and a warp
+training step, ``chip_smoke.warp_train_inputs``). C = 3, which the kernels are
 not built for, runs through the wrappers' zero-padding to C = 4.
 """
 
@@ -360,6 +363,40 @@ def test_trilinear_bwd_frac_in_situ(in_situ, dtype):
     grad = torch.randn((page_idx.shape[1], 32), device=lf.device,
                        generator=torch.Generator(lf.device).manual_seed(5))
     _check_frac(haloed.to(dtype), page_idx, lf, grad)
+
+
+@pytest.fixture(scope="module")
+def warp_frame(chip_smoke, cuda):
+    """``chip_smoke.warp_frame_inputs``: the page indices and fractions
+    of one full-frame render through the perspective warp at a corridor
+    view, at the full ``Config()`` width."""
+    return chip_smoke.warp_frame_inputs(0, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trilinear_fwd_in_situ_warp(warp_frame, dtype):
+    haloed, page_idx, lf = warp_frame
+    haloed = haloed.to(dtype)
+    out = trilinear.trilinear_fwd(haloed, page_idx, lf)
+    torch.cuda.synchronize()
+    ref = trilinear.trilinear_fwd_ref(haloed, page_idx, lf)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trilinear_bwd_frac_in_situ_warp(warp_frame, dtype):
+    haloed, page_idx, lf = warp_frame
+    grad = torch.randn((page_idx.shape[1], 32), device=lf.device,
+                       generator=torch.Generator(lf.device).manual_seed(6))
+    _check_frac(haloed.to(dtype), page_idx, lf, grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trilinear_bwd_in_situ_warp(chip_smoke, cuda, dtype):
+    """The pairs of one warp training step at ``bench.py --warp
+    perspective``'s point (``chip_smoke.warp_train_inputs``)."""
+    grad, page_idx, lf, meta = chip_smoke.warp_train_inputs(0, cuda)
+    _check_bwd(grad, page_idx, lf, meta.total_pages, dtype, chunk=65536)
 
 
 def test_encode_point_gradient_on_the_card(cuda):

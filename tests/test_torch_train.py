@@ -38,6 +38,7 @@ import torch
 
 from f2nerf_tpu.models import occupancy as jocc
 from f2nerf_tpu.models import renderer as jrend
+from f2nerf_tpu.models import warp as jwarp
 from f2nerf_tpu.train.optim import lr_schedule as jlr_schedule
 from f2nerf_tpu.train.optim import make_optimizer as jmake_optimizer
 from f2nerf_tpu.train.step import make_train_step as jmake_train_step
@@ -45,6 +46,7 @@ from f2nerf_tpu_torch.convert import (flatten, occ_grid_from_numpy,
                                       opt_state_from_numpy,
                                       params_from_numpy)
 from f2nerf_tpu_torch.core.config import Config as TConfig
+from f2nerf_tpu_torch.models import warp as twarp
 from f2nerf_tpu_torch.train import optim as topt
 from f2nerf_tpu_torch.train import step as tstep
 
@@ -130,10 +132,17 @@ def _setup(jcfg, seed):
 def _run(jcfg, seed, step0, n_steps=N_STEPS):
     """n_steps of each trainer from the same state; per step the
     metrics, grads, params after the update, occ grid, and the JAX
-    state (for the carried-state test)."""
+    state (for the carried-state test). A perspective-warp config gets
+    the warp tables of the poses, each package building its own."""
     tcfg = TConfig.from_dict(dataclasses.asdict(jcfg))
     tree, poses, intr, batches, grid = _setup(jcfg, seed)
     use_occ = jcfg.model.sampler_mode == "occ"
+    jconsts, tconsts = {"field": {}}, {}
+    if jcfg.model.warp_mode == "perspective":
+        tables = jwarp.build_warp(poses, jcfg.model)
+        jconsts = {"field": {"warp_anchors": tables.anchors,
+                             "warp_rows": tables.rows}}
+        tconsts = twarp.warp_consts(poses, tcfg.model, "cpu")
 
     jopt = optax.chain(_record(), jmake_optimizer(jcfg.train))
     jstep = jax.jit(jmake_train_step(jcfg, jopt))
@@ -153,7 +162,7 @@ def _run(jcfg, seed, step0, n_steps=N_STEPS):
         cam, ij, gt = batches[k % len(batches)]
         out["jax"].append(dict(params=jparams, state=jstate, grid=jgrid))
         jparams, jstate, jgrid, jm = jstep(
-            jparams, jstate, jgrid, {"field": {}}, jnp.asarray(poses),
+            jparams, jstate, jgrid, jconsts, jnp.asarray(poses),
             jnp.asarray(intr), jnp.asarray(step, jnp.int32),
             jnp.asarray(cam), jnp.asarray(ij), jnp.asarray(gt))
         grads = jstate[0]
@@ -170,7 +179,7 @@ def _run(jcfg, seed, step0, n_steps=N_STEPS):
         noise = jax_noise(jcfg, step, len(cam))
         tgrid, tm = tstep_fn(tparams, tgrid, tposes, tintr, step,
                              torch.tensor(cam), torch.tensor(ij),
-                             torch.tensor(gt), noise=noise)
+                             torch.tensor(gt), noise=noise, consts=tconsts)
         out["port"].append(dict(
             metrics=np.array([float(x) for x in tm]),
             grads={n: p.grad.numpy().copy() for n, p in opt.named.items()},
@@ -178,7 +187,8 @@ def _run(jcfg, seed, step0, n_steps=N_STEPS):
                         for n, p in opt.named.items()},
             new_grid=None if tgrid is None else tgrid.numpy().copy()))
     out.update(jcfg=jcfg, tcfg=tcfg, poses=poses, intr=intr,
-               batches=batches, step0=step0, use_occ=use_occ)
+               batches=batches, step0=step0, use_occ=use_occ,
+               tconsts=tconsts)
     return out
 
 
@@ -338,7 +348,7 @@ def test_grad_blocks_raises(tiny_cfg):
     tcfg = TConfig.from_dict(dataclasses.asdict(dataclasses.replace(
         tiny_cfg, train=dataclasses.replace(tiny_cfg.train, grad_blocks=2))))
     p = {"w": torch.ones(2)}
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A11"):
         tstep.make_train_step(tcfg, topt.make_optimizer(p, tcfg.train))
 
 
