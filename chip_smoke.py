@@ -86,12 +86,40 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    checks through the corridor's tables: the render at phase 7's
    tolerance, the pose gradient at ``WARP_POSE_TOL`` and the warp alone
    at tight tolerances (``pose_check_phase``).
+9. The ROS2 node (``node_phase``): stub ``rclpy`` and message modules
+   that record what is published, then ``apps.ros2_node.main`` on the
+   card over phase 6's run directory in modes 0 and 1 (a frame before
+   ``trigger_node_srv`` is refused; then activation, an initial pose 2 cm
+   off view ``SERVE_VIEW`` and two bgr8 frames of that view). The
+   published poses equal a ``LocalizerService`` of their own on the same
+   run, seed and arrays to 1e-6, the images bitwise; per-frame ms of the
+   node beside the service alone, the position error. Then one node over
+   phase 3's localizer with two 850x1920 frames: the node's own host
+   share, and the JAX node's nested-list hand-off timed alone.
+10. The dense two-pass (``dense_phase``) at ``bench.py --dense``'s point
+   (``Config()`` with the dense sampler, 512 rays x 1024 samples): fields
+   for the full bucket (the seeded init) and each prefix bucket (O(1)
+   features, a scanned density bias); the two-pass against the single
+   pass on one batch, outputs and every param grad, in the full bucket
+   and RS/8 with f32 tables at JAX's tolerances and with bf16 tables;
+   two runs of a two-pass step giving bitwise-equal ``feat_pool`` grads;
+   both modes timed in turns on each field (step ms, device ms, peak
+   memory); each prefix bucket's compacted survivor stream as an input
+   set of ``trilinear_fwd`` and ``trilinear_bwd``.
+11. The xor hash (``xor_phase``): 4 training steps of ``Config()`` with
+   ``hash_mode="xor"`` at phase 4's point, none of the three kernels
+   launched; whether two runs give bitwise-equal grads (reported); the
+   VALIDATE render on the card against the CPU as in phase 7.
+12. LPIPS (``lpips_phase``): random weights, two renders of phase 6's
+   map against their views, on the card and on the CPU (rel. 1e-4).
 
 A phase that fails is reported and the others still run; the script
 then exits non-zero. Otherwise one JSON line per the kernels (with the
-launches by path, the warp paths under ``warp/``), the ``nvidia-smi``
-name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits non-zero and prints no result.
+launches by path: the warp paths under ``warp/``, the node's under
+``node/``, the two-pass's under ``dense/``, xor's under ``xor/``), the
+``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -99,7 +127,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import importlib.abc
+import importlib.util
 import json
 import pathlib
 import subprocess
@@ -107,6 +137,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 from unittest import mock
 
 import numpy as np
@@ -131,8 +162,22 @@ from f2nerf_tpu_torch.train.loop import Trainer
 from f2nerf_tpu_torch.train.optim import make_optimizer
 from f2nerf_tpu_torch.train.step import (StepNoise, draw_noise,
                                          make_train_step)
-from f2nerf_tpu_torch.utils.image_io import read_image
+from f2nerf_tpu_torch.utils.image_io import read_image, resize_image
 from f2nerf_tpu_torch.utils.metrics import psnr, ssim
+
+
+def _load_ros2_stubs() -> types.ModuleType:
+    """``tests/_ros2_stubs.py``, the stub ROS modules the node phase runs
+    behind (shared with the tests), loaded by its path: another ``tests``
+    package on ``sys.path`` would shadow the repo's."""
+    path = pathlib.Path(__file__).resolve().parent / "tests" / "_ros2_stubs.py"
+    spec = importlib.util.spec_from_file_location("_ros2_stubs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ros2_stubs = _load_ros2_stubs()
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound: HBM3 bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -312,6 +357,21 @@ def kernel_phase(cfg: Config, seed: int, dev: torch.device, situ: dict
             "in_situ": in_situ}
 
 
+@contextlib.contextmanager
+def captured_page_indices():
+    """Inside, every ``hash_paged.page_indices`` call's (page_idx, local,
+    frac) is appended to the list this yields."""
+    orig = hash_paged.page_indices
+    captured = []
+
+    def capture(points, meta):
+        captured.append(orig(points, meta))
+        return captured[-1]
+
+    with mock.patch.object(hash_paged, "page_indices", capture):
+        yield captured
+
+
 def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
     """The encode inputs the paths give the kernels, captured by wrapping
     ``hash_paged.page_indices`` for one render each: "frame", one
@@ -322,15 +382,8 @@ def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
     (haloed, page_idx, local_frac) over the localizer's bf16 table, with
     the differential phase's O(1) features."""
     loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev))
-    orig = hash_paged.page_indices
-    captured = []
-
-    def capture(points, meta):
-        captured.append(orig(points, meta))
-        return captured[-1]
-
     pose = np.eye(3, 4, dtype=np.float32)
-    with mock.patch.object(hash_paged, "page_indices", capture):
+    with captured_page_indices() as captured:
         frame = loc.render_image(pose).cpu().numpy()
         loc.optimize_pose_by_random_search(pose, frame, PARTICLES, 1.0)
     haloed = loc.params["field"]["haloed"]
@@ -366,14 +419,7 @@ def warp_frame_inputs(seed: int, dev: torch.device,
     corridor = make_corridor_dataset(seed=seed)
     loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev),
                          consts=warp_consts(corridor.poses, cfg.model, dev))
-    orig = hash_paged.page_indices
-    captured = []
-
-    def capture(points, meta):
-        captured.append(orig(points, meta))
-        return captured[-1]
-
-    with mock.patch.object(hash_paged, "page_indices", capture):
+    with captured_page_indices() as captured:
         loc.render_image(corridor.poses[SERVE_VIEW])
     (page_idx, local, frac), = captured
     return (loc.params["field"]["haloed"], page_idx,
@@ -1274,21 +1320,22 @@ def loop_vs_bare(tr: Trainer) -> dict:
             "loop_overhead_ms": loop_ms - bare_ms, "profile": prof}
 
 
-def run_directory_phase(seed: int, dev: torch.device, warp: bool = False
-                        ) -> dict:
+def run_directory_phase(seed: int, dev: torch.device, root: pathlib.Path,
+                        warp: bool = False) -> dict:
     """Dataset directory -> train -> run directory -> resume, test, serve,
     through the CLI and the service, with yaml and PIL unimportable (see
-    the module docstring, phases 6 and 8c). ``warp``: the corridor in
-    ``warp_mode="perspective"``, with the tables checked and a mode-2
-    request, and no loop timing."""
+    the module docstring, phases 6 and 8c). The dataset goes to
+    ``root/data``, the run to ``root/run`` (kept for phases 9 and 12).
+    ``warp``: the corridor in ``warp_mode="perspective"``, with the
+    tables checked and a mode-2 request, and no loop timing."""
     t_phase = time.perf_counter()
     name = "warp run-directory" if warp else "run-directory"
     sub = {}
-    with tempfile.TemporaryDirectory() as tmp, unimportable("yaml", "PIL"):
-        data, run = pathlib.Path(tmp) / "data", pathlib.Path(tmp) / "run"
+    with unimportable("yaml", "PIL"):
+        data, run = root / "data", root / "run"
         make = make_corridor_dataset if warp else make_textured_dataset
         save_dataset(make(seed=seed), data)
-        run.mkdir()
+        run.mkdir(parents=True)
         cfg = Config.quality(end_iter=RUN_STEPS)
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, report_freq=RUN_REPORT, save_freq=RUN_STEPS // 2,
@@ -1477,13 +1524,14 @@ def scope_ms(prof, name: str) -> dict:
 
 
 def cross_check_phase(cfg: Config, seed: int, dev: torch.device,
-                      consts: dict | None = None) -> dict:
+                      consts: dict | None = None, what: str = "render"
+                      ) -> dict:
     """512 rays through the renderer on the card and on the CPU, with
-    O(1) features (``consts``: the warp tables of a perspective ``cfg``).
-    Tolerance 1e-3: CUDA and CPU round transcendental functions
-    differently, and the finest level (scale 1024) turns an ulp of sample
-    position into ~1e-4 of cell fraction."""
-    what = "warp render" if consts else "render"
+    O(1) features (``consts``: the warp tables of a perspective ``cfg``,
+    the hash constants of an xor ``cfg``). Tolerance 1e-3: CUDA and CPU
+    round transcendental functions differently, and the finest level
+    (scale 1024) turns an ulp of sample position into ~1e-4 of cell
+    fraction."""
     params = o1_params(cfg, seed + 1, dev)
     occ_vals = seeded_occ_vals(cfg, dev)
     rng = np.random.default_rng(seed)
@@ -1506,6 +1554,619 @@ def cross_check_phase(cfg: Config, seed: int, dev: torch.device,
     if not (dc <= 1e-3 and dd <= 1e-3):
         raise RuntimeError(f"{what} on the card disagrees with the CPU")
     return {"max_color_err": dc, "max_rel_depth_err": dd, "color_std": std}
+
+
+# -- phase 9: the ROS2 node ---------------------------------------------------
+
+@contextlib.contextmanager
+def ros2_node_module(spin):
+    """``f2nerf_tpu_torch.apps.ros2_node`` imported against the stub ROS
+    modules of ``tests/_ros2_stubs.py`` (ROS2 itself lives only in a ROS2
+    workspace; the node gates ``rclpy`` at import time), ``rclpy.spin``
+    being ``spin``; ``sys.modules`` is restored on exit."""
+    name = "f2nerf_tpu_torch.apps.ros2_node"
+    with mock.patch.dict(sys.modules, ros2_stubs.modules(spin)):
+        sys.modules.pop(name, None)
+        mod = importlib.import_module(name)
+        if not mod.HAVE_RCLPY:
+            raise RuntimeError("ros2_node did not take the stub rclpy")
+        yield mod
+
+
+def bgr8_message(rgb: np.ndarray, stamp: int) -> ros2_stubs.Image:
+    """A float [H, W, 3] RGB frame in [0, 1] as a bgr8 Image message."""
+    q = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+    msg = ros2_stubs.Image()
+    msg.height, msg.width, msg.encoding = q.shape[0], q.shape[1], "bgr8"
+    msg.step = q.shape[1] * 3
+    msg.data = np.ascontiguousarray(q[..., ::-1]).tobytes()
+    msg.header.stamp = stamp
+    return msg
+
+
+def _pose_vector(pose: ros2_stubs.Pose) -> np.ndarray:
+    """(x, y, z, qx, qy, qz, qw), the quaternion's sign fixed by qw."""
+    v = np.array([pose.position.x, pose.position.y, pose.position.z,
+                  pose.orientation.x, pose.orientation.y, pose.orientation.z,
+                  pose.orientation.w])
+    v[3:] *= 1.0 if v[6] >= 0 else -1.0
+    return v
+
+
+def drive_node(rn, node, init, frames, seed: int | None) -> list[float]:
+    """Stands in for the topics: a frame before activation (refused),
+    ``trigger_node_srv(True)``, the initial pose, then ``frames``; the
+    localizer's particle draws seeded with ``seed``. Returns each
+    frame's wall ms (host clock, synchronized)."""
+    if seed is not None:
+        node.service.localizer._rng = np.random.default_rng(seed)
+    node.callback_image(frames[0])
+    if len(node.get_logger().errors) != 1 or node.pub_pose.published:
+        raise RuntimeError("the node localized before trigger_node_srv")
+    res = types.SimpleNamespace(success=None)
+    node.service_trigger_node(types.SimpleNamespace(data=True), res)
+    if not (res.success and node.is_activated):
+        raise RuntimeError("trigger_node_srv did not activate the node")
+    node.callback_initial_pose(init)
+    times = []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        node.callback_image(f)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if len(node.get_logger().errors) != 1:
+        raise RuntimeError(f"node errors: {node.get_logger().errors}")
+    return times
+
+
+def check_published(node, frames, shape: tuple) -> None:
+    """One pose, pose with covariance, score and image per frame, well
+    formed, each stamped with its frame."""
+    n = len(frames)
+    pubs = (node.pub_pose, node.pub_pose_cov, node.pub_score, node.pub_image)
+    if [len(p.published) for p in pubs] != [n] * 4:
+        raise RuntimeError(f"published {[len(p.published) for p in pubs]} "
+                           f"messages per topic for {n} frames")
+    for k, f in enumerate(frames):
+        ps, pc = node.pub_pose.published[k], node.pub_pose_cov.published[k]
+        v = _pose_vector(ps.pose)
+        if not (np.isfinite(v).all()
+                and abs(np.linalg.norm(v[3:]) - 1.0) < 1e-5
+                and ps.header.stamp == pc.header.stamp == f.header.stamp
+                and ps.header.frame_id == "map"
+                and np.array_equal(_pose_vector(pc.pose.pose), v)
+                and len(pc.pose.covariance) == 36
+                and np.isfinite(node.pub_score.published[k].data)):
+            raise RuntimeError(f"frame {k}: malformed pose or score")
+        img = node.pub_image.published[k]
+        if ((img.height, img.width) != shape[:2] or img.encoding != "rgb8"
+                or len(img.data) != shape[0] * shape[1] * 3):
+            raise RuntimeError(f"frame {k}: published image {img.height}x"
+                               f"{img.width} {img.encoding}")
+
+
+def node_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
+    """Phase 9: ``apps.ros2_node.main`` over phase 6's run directory
+    (``root/run``) on the card, behind stub ROS modules, in modes 0 and 1:
+    an initial pose ``POSE_SHIFT`` off view ``SERVE_VIEW`` and two bgr8
+    frames of that view. Each mode's published poses are held to 1e-6
+    against a ``LocalizerService`` of its own on the same run, seed and
+    inputs, and its images to the service's render bitwise; then one
+    node at the serving phase's 850x1920 frame (``node_frame_check``)."""
+    stubs = types.SimpleNamespace(drive=None)
+    run = root / "run"
+    ds = load_dataset(root / "data")
+    out = {"subpaths": {}}
+    with unimportable("yaml", "PIL"), ros2_node_module(
+            lambda node: stubs.drive(node)) as rn:
+        probe = Localizer.from_checkpoint(run, device=dev)
+        true_world = probe.camera2world(ds.poses[SERVE_VIEW])
+        del probe
+        moved = true_world.copy()
+        moved[:3, 3] += POSE_SHIFT
+        init = ros2_stubs.PoseWithCovarianceStamped()
+        init.pose.pose = rn.matrix_to_pose_msg(ros2_stubs.Pose, moved)
+        frames = [bgr8_message(ds.images[SERVE_VIEW], stamp)
+                  for stamp in (11, 12)]
+        for mode, used in ((0, ("trilinear_fwd",)),
+                           (1, ("trilinear_fwd", "trilinear_bwd_frac"))):
+            got = {}
+
+            def drive(node):
+                got["node"] = node
+                got["frame_ms"] = drive_node(rn, node, init, frames, seed)
+
+            stubs.drive = drive
+            argv = [str(run), "--optimization_mode", str(mode),
+                    "--resize_factor", "1", "--particle_num", str(PARTICLES)]
+            sub, rc = _subpath(f"node mode {mode}", used,
+                               lambda: rn.main(argv))
+            node = got["node"]
+            if rc != 0 or node.service.localizer.device != dev:
+                raise RuntimeError(f"node main returned {rc} on "
+                                   f"{node.service.localizer.device}")
+            check_published(node, frames, (ds.height, ds.width))
+
+            # the service alone, on its own localizer, same seed and inputs
+            svc = LocalizerService(Localizer.from_checkpoint(
+                run, LocalizerParam(resize_factor=1), device=dev))
+            svc.localizer._rng = np.random.default_rng(seed)
+            svc.handle({"cmd": "init_pose", "pose": rn.pose_msg_to_matrix(
+                init.pose.pose.position, init.pose.pose.orientation).tolist()})
+            svc_ms, pose_err, images_equal = [], 0.0, True
+            for k, f in enumerate(frames):
+                image = rn.image_msg_to_array(f)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = svc.handle({"cmd": "localize", "image": image,
+                                "mode": mode, "particle_num": PARTICLES,
+                                "return_image": True})
+                torch.cuda.synchronize()
+                svc_ms.append((time.perf_counter() - t0) * 1e3)
+                check_reply(r, f"direct mode-{mode} request {k}")
+                want = _pose_vector(rn.matrix_to_pose_msg(
+                    ros2_stubs.Pose, np.asarray(r["pose"])))
+                got_v = _pose_vector(node.pub_pose.published[k].pose)
+                pose_err = max(pose_err, float(np.abs(got_v - want).max()))
+                want_img = rn.array_to_image_msg(
+                    ros2_stubs.Image, np.asarray(r["rendered"], np.float32),
+                    "map", 0)
+                images_equal &= (node.pub_image.published[k].data
+                                 == want_img.data)
+            last = node.pub_pose.published[-1].pose.position
+            err_after = float(np.linalg.norm(
+                np.array([last.x, last.y, last.z]) - true_world[:3, 3]))
+            res = {"frame_ms": got["frame_ms"], "service_ms": svc_ms,
+                   "max_pose_diff": pose_err, "images_equal": images_equal,
+                   "position_error_before": _pose_error(moved, true_world),
+                   "position_error_after": err_after,
+                   "scores": [m.data for m in node.pub_score.published]}
+            log(f"node mode {mode} (main on {dev}, {ds.height}x{ds.width} "
+                f"frames): per frame {[round(t, 2) for t in res['frame_ms']]}"
+                f" ms vs the service alone "
+                f"{[round(t, 2) for t in svc_ms]} ms; published pose vs the "
+                f"service's: max |d| = {pose_err:.2e} (tol 1e-6), images "
+                f"bitwise equal: {images_equal}; position error "
+                f"{res['position_error_before']:.4f} -> {err_after:.4f} "
+                f"(world units)")
+            if not (pose_err <= 1e-6 and images_equal):
+                raise RuntimeError(f"node mode {mode} disagrees with the "
+                                   f"service")
+            out[f"mode{mode}"] = res
+            out["subpaths"][f"mode{mode}"] = sub
+        out["mode0_850x1920"], out["subpaths"]["mode0_850x1920"] = \
+            node_frame_check(rn, seed, dev)
+    return out
+
+
+def node_frame_check(rn, seed: int, dev: torch.device) -> tuple[dict, dict]:
+    """One node over the serving phase's localizer (``Config()``,
+    850x1920 frames at resize factor 8), two mode-0 frames of 850x1920:
+    the node's per-frame wall time beside the service alone on the same
+    arrays, and the host parts alone: the message to a float32 array,
+    and the nested-list hand-off the JAX node makes (``tolist`` and back),
+    which the port's node skips."""
+    loc = make_localizer(Config(), seed, dev)
+    svc = LocalizerService(loc)
+    node = rn.NerfBasedLocalizerNode(svc, optimization_mode=0,
+                                     particle_num=PARTICLES)
+    pose, target = target_frame(loc)
+    init = ros2_stubs.PoseWithCovarianceStamped()
+    init.pose.pose = rn.matrix_to_pose_msg(ros2_stubs.Pose,
+                                           loc.camera2world(pose))
+    big = resize_image(target, FRAME_H, FRAME_W)
+    frames = [bgr8_message(big, stamp) for stamp in (21, 22)]
+    sub, frame_ms = _subpath("node mode 0 at 850x1920", ("trilinear_fwd",),
+                             lambda: drive_node(rn, node, init, frames, seed))
+    check_published(node, frames, (loc.infer_height, loc.infer_width))
+    svc_ms, conv_ms, list_ms = [], [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        image = rn.image_msg_to_array(f)
+        conv_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        np.asarray(image.tolist(), dtype=np.float32)
+        list_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = svc.handle({"cmd": "localize", "image": image, "mode": 0,
+                        "particle_num": PARTICLES, "return_image": True})
+        torch.cuda.synchronize()
+        svc_ms.append((time.perf_counter() - t0) * 1e3)
+        check_reply(r, "850x1920 mode-0 request")
+    share = 1.0 - float(np.mean(svc_ms)) / float(np.mean(frame_ms))
+    log(f"node mode 0 at {FRAME_H}x{FRAME_W} frames (rendered "
+        f"{loc.infer_height}x{loc.infer_width}): per frame "
+        f"{[round(t, 2) for t in frame_ms]} ms vs the service alone "
+        f"{[round(t, 2) for t in svc_ms]} ms (the node's own share "
+        f"{share:.1%}); alone: message -> array "
+        f"{[round(t, 2) for t in conv_ms]} ms, the JAX node's list hand-off "
+        f"(tolist + asarray) {[round(t, 1) for t in list_ms]} ms")
+    return ({"frame_ms": frame_ms, "service_ms": svc_ms,
+             "node_share": share, "msg_to_array_ms": conv_ms,
+             "list_handoff_ms": list_ms}, sub)
+
+
+# -- phase 10: the dense two-pass ---------------------------------------------
+
+DENSE_RAYS = 512            # bench.py --dense: 512 rays x 1024 samples
+DENSE_WINDOW = 4            # steps a timing window; in turns S, T, T, S
+DENSE_BIASES = tuple(np.arange(2.0, 16.5, 0.5))   # density biases scanned
+
+
+def dense_cfg(two_pass: bool, bf16: bool = True) -> Config:
+    """``bench.py --dense``'s point (``bench.py:196-201``): ``Config()``
+    with the dense sampler, 512 rays a step."""
+    cfg = train_cfg(DENSE_RAYS)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, sampler_mode="dense", dense_two_pass=two_pass,
+        bf16_features=bf16))
+
+
+def dense_params(cfg: Config, seed: int, dev: torch.device,
+                 bias: float | None) -> dict:
+    """The seeded init (``bias`` None: ~1e-4 features, nothing
+    terminates) or O(1) features with density bias ``bias``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = renderer.init(g, cfg.model, N_IMAGES, dev)
+    if bias is not None:
+        pool = params["field"]["feat_pool"]
+        params["field"]["feat_pool"] = torch.rand(
+            pool.shape, generator=g, device=dev) * 2 - 1
+        params["field"]["mlp"]["b"][0] = bias
+    return params
+
+
+def dense_render(params, cfg: Config, b, noise):
+    """A TRAIN render of batch ``b`` (cam, ij, gt) on bench.py's cameras."""
+    poses, intr = cameras(b[0].device)
+    cam = b[0].long()
+    rays_o, rays_d = rays_from_pose(poses[cam], intr[cam], b[1].float())
+    return renderer.render(params, rays_o, rays_d, cfg.model, emb_idx=cam,
+                           noise=noise)
+
+
+def _clone(tree: dict) -> dict:
+    """Detached copies of every leaf (new leaves for an optimizer)."""
+    return {k: _clone(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+def _worst(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float
+           ) -> float:
+    """max |a - b| / (atol + rtol |b|): within tolerance when <= 1."""
+    a, b = a.detach(), b.detach()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def two_pass_check(params, b, noise, bf16: bool) -> dict:
+    """The two-pass against the single pass on one batch, outputs and the
+    grads of sum(colors) + sum(depths) + sum(weights * t) in every param
+    leaf, at JAX's own tolerances (``tests/test_renderer.py:224-250``:
+    colors rtol/atol 1e-5, depths 1e-4, weights rtol 1e-5 atol 1e-6, the
+    mask exactly, ``sec_density`` under the mask and exactly 0 outside;
+    grads rtol 5e-3 atol 1e-6) with f32 tables (``bf16=False``, as JAX
+    holds them). With bf16 tables the grads are held as phase 7 holds
+    them, atol 1e-2 of each leaf's largest |grad|: one bf16 rounding of
+    each page-gradient cell can go either way when the f32 sums differ in
+    order."""
+    outs = {}
+    for two_pass in (False, True):
+        p = _clone(params)
+        leaves = flatten(p)
+        for v in leaves.values():
+            v.requires_grad_(True)
+        res = dense_render(p, dense_cfg(two_pass, bf16), b, noise)
+        (res.colors.sum() + res.depths.sum()
+         + (res.weights * res.t).sum()).backward()
+        outs[two_pass] = (res, {k: v.grad for k, v in leaves.items()})
+    (sp, gs), (tp, gt) = outs[False], outs[True]
+    if not torch.equal(sp.mask, tp.mask):
+        raise RuntimeError("two-pass mask differs from the single pass")
+    m = sp.mask
+    worst = {"colors": _worst(tp.colors, sp.colors, 1e-5, 1e-5),
+             "depths": _worst(tp.depths, sp.depths, 1e-4, 1e-4),
+             "weights": _worst(tp.weights, sp.weights, 1e-5, 1e-6),
+             "sec_density": _worst(tp.sec_density * m, sp.sec_density * m,
+                                   1e-5, 1e-6)}
+    tail = float((tp.sec_density.detach() * ~m).abs().max())
+    grads = {}
+    for k, g in gt.items():
+        if bf16:
+            grads[k] = float((g - gs[k]).abs().max()) / (
+                1e-2 * max(float(gs[k].abs().max()), 1e-30))
+        else:
+            grads[k] = _worst(g, gs[k], 5e-3, 1e-6)
+    worst["grads"] = max(grads.values())
+    ok = all(v <= 1.0 for v in worst.values()) and tail == 0.0
+    return {"worst": worst, "grads": grads, "tail": tail, "ok": ok,
+            "explore_none": tp.explore is None}
+
+
+def _capture_compacted(params, cfg: Config, b, noise) -> tuple:
+    """The compacted survivor stream of one two-pass render: the
+    (page_idx, local_frac) of pass 2's encode."""
+    with torch.no_grad(), captured_page_indices() as captured:
+        dense_render(params, cfg, b, noise)
+    if len(captured) != 2:
+        raise RuntimeError(f"{len(captured)} encodes in a two-pass render")
+    page_idx, local, frac = captured[1]
+    return page_idx, torch.cat([local.float(), frac], dim=-1)
+
+
+def dense_timing(params, b_list, dev: torch.device, what: str) -> dict:
+    """Single pass and two-pass training steps from the same field, each
+    with its own copy and optimizer, ``DENSE_WINDOW`` steps a window in
+    turns single, two, two, single; step ms on the host clock around
+    synchronized steps, launches and peak memory per mode, the buckets
+    the two-pass took, then one profiled step of each."""
+    sizes = []
+    orig = hash_field.query_compacted
+
+    def spy(p, points, *a, **kw):
+        sizes.append(points.shape[0])
+        return orig(p, points, *a, **kw)
+
+    poses, intr = cameras(dev)
+    runs = {}
+    for mode, two_pass in (("single_pass", False), ("two_pass", True)):
+        p = _clone(params)
+        opt = make_optimizer(p, dense_cfg(two_pass).train)
+        runs[mode] = {"params": p,
+                      "step": make_train_step(dense_cfg(two_pass), opt),
+                      "k": 0, "ms": [], "peak_gb": 0.0,
+                      "launches": dict.fromkeys(ALL_KERNELS, 0)}
+    with mock.patch.object(hash_field, "query_compacted", spy):
+        for mode in ("single_pass", "two_pass", "two_pass", "single_pass"):
+            r = runs[mode]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_launches()
+            for _ in range(DENSE_WINDOW):
+                b = b_list[r["k"] % len(b_list)]
+                t0 = time.perf_counter()
+                r["step"](r["params"], None, poses, intr, STEP0 + r["k"], *b)
+                torch.cuda.synchronize()
+                r["ms"].append((time.perf_counter() - t0) * 1e3)
+                r["k"] += 1
+            for name, count in read_launches().items():
+                r["launches"][name] += count
+            r["peak_gb"] = max(r["peak_gb"], torch.cuda.max_memory_allocated(
+                dev) / 2**30)
+        out = {}
+        for mode, r in runs.items():
+            check_launches(f"dense {what} {mode}", r["launches"],
+                           ("trilinear_fwd", "trilinear_bwd"))
+            b = b_list[0]
+            prof = profile_call(
+                lambda: r["step"](r["params"], None, poses, intr,
+                                  STEP0 + r["k"], *b),
+                f"dense {what} {mode} step")
+            out[mode] = {"step_ms": r["ms"],
+                         "mean_ms": float(np.mean(r["ms"][1:])),
+                         "peak_mem_gb": r["peak_gb"],
+                         "launches": r["launches"], "profile": prof}
+    out["buckets"] = sorted(set(sizes))
+    log(f"dense {what}: step ms single pass {[round(t, 2) for t in out['single_pass']['step_ms']]}"
+        f" vs two-pass {[round(t, 2) for t in out['two_pass']['step_ms']]} "
+        f"(means from the 2nd step {out['single_pass']['mean_ms']:.2f} vs "
+        f"{out['two_pass']['mean_ms']:.2f}); device ms "
+        f"{out['single_pass']['profile']['device_ms']:.2f} vs "
+        f"{out['two_pass']['profile']['device_ms']:.2f}; peak memory "
+        f"{out['single_pass']['peak_mem_gb']:.2f} vs "
+        f"{out['two_pass']['peak_mem_gb']:.2f} GiB; buckets taken "
+        f"{out['buckets']}")
+    return out
+
+
+def dense_phase(seed: int, dev: torch.device, kernels: list) -> dict:
+    """Phase 10 at ``bench.py --dense``'s point: the fields (the seeded
+    init, where nothing terminates, and O(1) features with the first bias
+    of ``DENSE_BIASES`` whose survivors land in each prefix bucket), the
+    two-pass held against the single pass in the full bucket and in RS/8
+    (f32 and bf16 tables, ``two_pass_check``), two runs of a two-pass step
+    giving bitwise-equal ``feat_pool`` grads, both modes timed on every
+    field (``dense_timing``), and each prefix bucket's compacted survivor
+    stream as an input set of ``trilinear_fwd`` and ``trilinear_bwd``
+    (added to ``kernels``' entries)."""
+    cfg = dense_cfg(True)
+    n = DENSE_RAYS * cfg.model.n_samples
+    rng = np.random.default_rng(seed + 10)
+    b_list = [batch(rng, DENSE_RAYS, dev) for _ in range(2 * DENSE_WINDOW)]
+    noise = draw_noise(cfg, STEP0, DENSE_RAYS, dev)
+    fields, scan = {}, []
+    for bias in (None, *map(float, DENSE_BIASES)):
+        p = dense_params(cfg, seed, dev, bias)
+        with torch.no_grad():
+            n_surv = int(dense_render(p, dense_cfg(False), b_list[0],
+                                      noise).mask.sum())
+        bucket = renderer.two_pass_bucket(n, n_surv)
+        name = "RS" if bucket == n else f"RS/{n // bucket}"
+        scan.append((bias, n_surv / n, name))
+        if name not in fields:
+            fields[name] = {"params": p, "bias": bias,
+                            "survivor_share": n_surv / n, "bucket": bucket}
+    log(f"dense fields at {DENSE_RAYS} rays x {cfg.model.n_samples} samples "
+        f"({n} points): density bias -> survivor share, bucket: "
+        + ", ".join(f"{b}: {s:.3f} {nm}" for b, s, nm in scan))
+    if "RS" not in fields or "RS/8" not in fields:
+        raise RuntimeError(f"no full or RS/8 field among {sorted(fields)}")
+
+    checks = {}
+    for name in ("RS", "RS/8"):
+        for bf16 in (False, True):
+            key = f"{name} {'bf16' if bf16 else 'f32'}"
+            checks[key] = two_pass_check(fields[name]["params"], b_list[0],
+                                         noise, bf16)
+            log(f"two-pass vs single pass, {key} (survivor share "
+                f"{fields[name]['survivor_share']:.4f}, bucket "
+                f"{fields[name]['bucket']}): worst err/tol "
+                f"{ {k: f'{v:.3f}' for k, v in checks[key]['worst'].items()} }"
+                f", sec_density outside the mask {checks[key]['tail']}")
+    bad = [k for k, c in checks.items()
+           if not (c["ok"] and c["explore_none"])]
+    if bad:
+        raise RuntimeError(f"the two-pass disagrees with the single pass: "
+                           f"{bad}")
+
+    poses, intr = cameras(dev)
+    grads = []
+    for _ in range(2):
+        p = _clone(fields["RS/8"]["params"])
+        opt = make_optimizer(p, cfg.train)
+        make_train_step(cfg, opt)(p, None, poses, intr, STEP0, *b_list[0],
+                                  noise=noise)
+        grads.append({k: v.grad.detach().clone()
+                      for k, v in opt.named.items()})
+    unequal = sorted(k for k in grads[0]
+                     if not torch.equal(grads[0][k], grads[1][k]))
+    log(f"two runs of a two-pass step (RS/8): grads not bitwise equal for "
+        f"{unequal}")
+    if "field/feat_pool" in unequal:
+        raise RuntimeError("two-pass feat_pool grads differ between runs")
+    del grads
+
+    timing = {name: dense_timing(f["params"], b_list, dev, name)
+              for name, f in fields.items()}
+    subpaths = {mode: {"launches": {k: sum(t[mode]["launches"][k]
+                                           for t in timing.values())
+                                    for k in ALL_KERNELS}}
+                for mode in ("two_pass", "single_pass")}
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    by_name = {k["name"]: k for k in kernels}
+    meta = hash_field.paged_meta(cfg.model)
+    for name, f in fields.items():
+        if name == "RS":
+            continue
+        page_idx, lf = _capture_compacted(f["params"], cfg, b_list[0], noise)
+        haloed = hash_field.haloed_table(f["params"]["field"], cfg.model)
+        key = f"dense_survivors_{name.replace('/', '_')}"
+        by_name["trilinear_fwd"]["in_situ"][key] = fwd_set(
+            f"dense {name} survivors", (haloed, page_idx, lf), flush)
+        g = torch.randn((page_idx.shape[1], meta.n_levels * meta.n_channels),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed + 12), device=dev)
+        by_name["trilinear_bwd"]["sets"][key] = bwd_set(
+            f"dense {name} survivors", g, page_idx, lf, meta.total_pages,
+            flush)
+    return {"subpaths": subpaths,
+            "fields": {k: {kk: v for kk, v in f.items() if kk != "params"}
+                       for k, f in fields.items()},
+            "checks": checks, "bitwise_unequal": unequal, "timing": timing}
+
+
+# -- phase 11: the xor hash ---------------------------------------------------
+
+XOR_STEPS = 4
+
+
+def xor_cfg(cfg: Config) -> Config:
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, hash_mode="xor"))
+
+
+def xor_consts(cfg: Config, seed: int, dev: torch.device) -> dict:
+    """The field's xor constants (primes from ``np_seed`` 2022, seeded
+    biases)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"field": hash_field.init_consts(g, cfg.model, dev)}
+
+
+def xor_phase(seed: int, dev: torch.device) -> dict:
+    """Phase 11: ``XOR_STEPS`` training steps of ``Config()`` with
+    ``hash_mode="xor"`` at ``bench.py``'s occupancy point (phase 4's),
+    none of the three kernels launched; step ms, peak memory, one
+    profiled step; whether two runs of a step give bitwise-equal grads
+    (reported: the xor backward is autograd's ``index_add_``)."""
+    cfg = xor_cfg(train_cfg(TRAIN_RAYS))
+    consts = xor_consts(cfg, seed, dev)
+    params, opt, step_fn = make_trainer(cfg, seed, dev)
+    poses, intr = cameras(dev)
+    grid = seeded_grid(cfg, dev)
+    rng = np.random.default_rng(seed)
+    batches = [batch(rng, TRAIN_RAYS, dev) for _ in range(XOR_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    times, losses = [], []
+    for k in range(XOR_STEPS):
+        t0 = time.perf_counter()
+        grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k],
+                          consts=consts)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m.loss))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    check_launches("xor/training", launches, ())
+    if not (np.all(np.isfinite(losses)) and all(
+            bool(torch.isfinite(p).all()) for p in opt.named.values())):
+        raise RuntimeError(f"xor training diverged: losses {losses}")
+    prof = profile_call(lambda: step_fn(params, grid, poses, intr,
+                                        STEP0 + XOR_STEPS, *batches[0],
+                                        consts=consts), "xor train step")
+    grads = []
+    for _ in range(2):
+        p, o, s = make_trainer(cfg, seed, dev)
+        s(p, seeded_grid(cfg, dev), poses, intr, STEP0 + 1, *batches[0],
+          consts=consts)
+        grads.append({k: v.grad.detach().clone() for k, v in o.named.items()})
+    unequal = sorted(k for k in grads[0]
+                     if not torch.equal(grads[0][k], grads[1][k]))
+    log(f"xor/training: {TRAIN_RAYS} rays a step, step ms "
+        f"{[round(t, 2) for t in times]} (first includes the refresh at "
+        f"{STEP0}), peak memory {peak_gb:.2f} GiB, losses {losses}; two "
+        f"runs of a step: grads not bitwise equal for {unequal}")
+    return {"step_ms": times, "mean_ms": float(np.mean(times[1:])),
+            "peak_mem_gb": peak_gb, "launches": launches, "losses": losses,
+            "profile": prof, "bitwise_unequal": unequal}
+
+
+# -- phase 12: LPIPS ----------------------------------------------------------
+
+def lpips_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
+    """Phase 12: LPIPS(vgg) with random weights (``make_random_weights``;
+    the real VGG16 weights need a download) between two 128x128 renders
+    of phase 6's map and their views, on the card and on the CPU: the
+    distances agree to 1e-4 relative, under PyTorch's default precision
+    flags (the module pins fp32 itself)."""
+    from f2nerf_tpu_torch.utils import lpips
+
+    path = root / "lpips_random.pt"
+    lpips.make_random_weights(path, seed=seed)
+    ds = load_dataset(root / "data")
+    with unimportable("yaml", "PIL"):
+        loc = Localizer.from_checkpoint(root / "run", device=dev)
+    views = (0, SERVE_VIEW)
+    x = torch.stack([loc.render_image(ds.poses[i]).float().cpu()
+                     for i in views]).permute(0, 3, 1, 2) * 2 - 1
+    y = torch.as_tensor(np.stack([ds.images[i] for i in views])
+                        ).permute(0, 3, 1, 2).float() * 2 - 1
+    nets = {"cuda": lpips.load(path), "cpu": lpips.load(path, device="cpu")}
+    if nets["cuda"].device != dev:
+        raise RuntimeError(f"lpips.load put the network on "
+                           f"{nets['cuda'].device}")
+    dist, ms = {}, {}
+    # under PyTorch's default (cuDNN may use TF32), which main() turns off
+    # for the other phases: the module pins fp32 itself
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        for name, net in nets.items():
+            net(x, y)
+            t0 = time.perf_counter()
+            dist[name] = net(x, y)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        same = nets["cuda"](x, x)
+    rel = abs(dist["cuda"] - dist["cpu"]) / abs(dist["cpu"])
+    log(f"LPIPS (random weights), 2 renders of {x.shape[2]}x{x.shape[3]} vs "
+        f"their views: card {dist['cuda']:.6f} ({ms['cuda']:.1f} ms) vs CPU "
+        f"{dist['cpu']:.6f} ({ms['cpu']:.1f} ms), rel {rel:.2e} (tol 1e-4); "
+        f"LPIPS(x, x) = {same}")
+    if not (np.isfinite(dist["cuda"]) and dist["cuda"] > 0 and rel <= 1e-4
+            and same == 0.0):
+        raise RuntimeError("LPIPS on the card disagrees with the CPU")
+    return {"cuda": dist["cuda"], "cpu": dist["cpu"], "rel": rel, "ms": ms}
 
 
 def main() -> int:
@@ -1567,21 +2228,43 @@ def main() -> int:
         "warp training", training_phase, wcfg, args.seed, dev,
         consts=bench_warp_consts(wcfg, dev), path="warp/training")
     runs = {}
-    for prefix, warp in (("", False), ("warp/", True)):
-        res = phase(f"{prefix}run directory", run_directory_phase, args.seed,
-                    dev, warp=warp)
+
+    def add_paths(prefix: str, res: dict | None) -> None:
         if res is not None:
             for name, sub in res.pop("subpaths").items():
-                paths[f"{prefix}run_directory/{name}"] = sub
-        runs[f"{prefix}run_directory"] = res
+                paths[f"{prefix}{name}"] = sub
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        for prefix, warp in (("", False), ("warp/", True)):
+            res = phase(f"{prefix}run directory", run_directory_phase,
+                        args.seed, dev, work / (prefix or "contract"),
+                        warp=warp)
+            add_paths(f"{prefix}run_directory/", res)
+            runs[f"{prefix}run_directory"] = res
+        runs["node"] = phase("node", node_phase, args.seed, dev,
+                             work / "contract")
+        add_paths("node/", runs["node"])
+        runs["lpips"] = phase("lpips", lpips_phase, args.seed, dev,
+                              work / "contract")
+    runs["dense"] = phase("dense two-pass", dense_phase, args.seed, dev,
+                          kernels)
+    add_paths("dense/", runs["dense"])
+    paths["xor/training"] = phase("xor training", xor_phase, args.seed, dev)
     corridor = make_corridor_dataset(seed=args.seed)
     ccfg = warp_cfg(cfg)
     cconsts = warp_consts(corridor.poses, ccfg.model, dev)
+    xcfg = xor_cfg(cfg)
     checks = {
         "render": phase("render check", cross_check_phase, cfg, args.seed,
                         dev),
         "warp render": phase("warp render check", cross_check_phase, ccfg,
-                             args.seed, dev, consts=cconsts),
+                             args.seed, dev, consts=cconsts,
+                             what="warp render"),
+        "xor render": phase("xor render check", cross_check_phase, xcfg,
+                            args.seed, dev,
+                            consts=xor_consts(xcfg, args.seed, dev),
+                            what="xor render"),
         "step": phase("step check", step_check_phase, args.seed, dev),
         "pose": phase("pose check", pose_check_phase, cfg, args.seed, dev),
         "warp pose": phase("warp pose check", pose_check_phase, ccfg,

@@ -9,11 +9,12 @@ The JAX params pytree (``f2nerf_tpu/models/renderer.py:57-63``) is
 
 The port keeps that layout and applies weights as ``x @ w``, so every
 array is carried over unchanged (no transposes). The non-trained
-``consts`` tree (``renderer.init``'s second output; in
-``warp_mode="perspective"`` the warp tables ``field.warp_anchors``
-[M, 3] and ``field.warp_rows`` [M, 128] that the JAX ``Trainer`` adds)
-carries over the same way, as a dict of its own: the port keeps it out
-of ``params`` and so out of Adam. The occupancy grid ([2, G, G, G])
+``consts`` tree (``renderer.init``'s second output: in ``hash_mode="xor"``
+``field.primes`` [L, 3] uint32, ``field.biases`` [L, 3] and
+``field.scales`` [L]; in ``warp_mode="perspective"`` the warp tables
+``field.warp_anchors`` [M, 3] and ``field.warp_rows`` [M, 128] that the
+JAX ``Trainer`` adds) carries over as a dict of its own, the primes as
+int64: the port keeps it out of ``params`` and so out of Adam. The occupancy grid ([2, G, G, G])
 carries over as it is, and the optax state of
 ``f2nerf_tpu.train.optim.make_optimizer`` maps onto the port's
 ``train.optim.Optimizer`` (Adam moments, count and schedule count).
@@ -27,28 +28,22 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree: Mapping[str, Any],
-                      device: torch.device | str) -> dict[str, Any]:
-    """Nested dict of numpy arrays (the JAX params pytree after
-    ``jax.tree.map(np.asarray, params)``) -> the port's params, float32
-    tensors on ``device``. The arrays are copied: JAX hands out read-only
-    buffers, and the port's tensors must not alias them."""
+def tree_from_numpy(tree: Mapping[str, Any],
+                    device: torch.device | str) -> dict[str, Any]:
+    """Nested dict of numpy arrays (a JAX params or consts pytree after
+    ``jax.tree.map(np.asarray, tree)``) -> the same nesting of tensors on
+    ``device``: float arrays become float32, integer arrays (the xor
+    hash's uint32 ``primes``) int64. The arrays are copied: JAX hands out
+    read-only buffers, and the port's tensors must not alias them."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out[k] = params_from_numpy(v, device)
-        else:
-            out[k] = torch.tensor(np.asarray(v, dtype=np.float32),
-                                  device=device)
+            out[k] = tree_from_numpy(v, device)
+            continue
+        a = np.asarray(v)
+        dtype = np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32
+        out[k] = torch.tensor(a.astype(dtype), device=device)
     return out
-
-
-def consts_from_numpy(tree: Mapping[str, Any],
-                      device: torch.device | str) -> dict[str, Any]:
-    """The JAX consts tree (after ``jax.tree.map(np.asarray, consts)``)
-    -> the port's consts: the same nesting, float32 tensors on
-    ``device`` (``{"field": {}}`` in contract mode)."""
-    return params_from_numpy(tree, device)
 
 
 def occ_grid_from_numpy(grid: Any, device: torch.device | str

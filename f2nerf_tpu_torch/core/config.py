@@ -28,7 +28,7 @@ class ModelConfig:
     n_levels: int = 8
     n_channels: int = 4
     log2_table_size: int = 19       # entries per level = 2^19
-    hash_mode: str = "paged"        # 'paged' (ported) | 'xor' (not ported)
+    hash_mode: str = "paged"        # 'paged' | 'xor' (the reference's hash)
     init_seed: int = 2022           # numpy-side init (page constants)
     encode_chunk: int = 20480       # points per chunk of the plain encode
     encode_dedup: bool = True       # run dedup (exact; the port encodes flat)
@@ -53,8 +53,8 @@ class ModelConfig:
     sample_l: float = 1.0 / 256.0
     sampler_mode: str = "occ"       # 'occ' | 'dense'
     sample_near: float = 0.0
-    dense_two_pass: bool = False
-    dense_two_pass_dedup: bool = False
+    dense_two_pass: bool = False     # TRAIN early-stop compaction (dense)
+    dense_two_pass_dedup: bool = False   # exact either way; encodes flat
     occ_grid_res: int = 128
     occ_segments: int = 128
     occ_keep: int = 8

@@ -152,8 +152,9 @@ class Localizer:
         """``params``: the port's params dict (see ``convert``);
         ``occ_vals``: ``occupancy.occ_values`` of the trained grid, needed
         when the config samples by occupancy; ``consts``: the non-trained
-        constants, ``{"field": {"warp_anchors", "warp_rows"}}``, which
-        ``warp_mode="perspective"`` needs (raises without them). Runs on
+        constants, ``{"field": {...}}``: the warp tables, which
+        ``warp_mode="perspective"`` needs, and the hash constants, which
+        ``hash_mode="xor"`` needs (raises without them). Runs on
         ``cuda`` unless ``device`` says otherwise, and raises if there is
         no card."""
         self.device = resolve_device(device)
@@ -166,10 +167,11 @@ class Localizer:
         self.consts = _to_device(consts, self.device)
         self.cfg = cfg
         params = _to_device(params, self.device)
-        # params never change while serving, so the haloed table is built
-        # once here instead of on every render
-        params["field"]["haloed"] = hash_field.haloed_table(
-            params["field"], cfg.model)
+        if cfg.model.hash_mode == "paged":
+            # params never change while serving, so the haloed table is
+            # built once here instead of on every render
+            params["field"]["haloed"] = hash_field.haloed_table(
+                params["field"], cfg.model)
         self.params = params
         self.occ_vals = (None if occ_vals is None
                          else occ_vals.to(self.device))
@@ -198,30 +200,18 @@ class Localizer:
         * ``torch_params.npz``, a converted JAX run: the params tree
           flattened by ``convert.flatten`` ("field/feat_pool",
           "field/mlp/w", ..., "app_emb"), the occupancy grid as
-          "occ_grid" and, for a perspective-warp run, the warp tables as
-          "consts/field/warp_anchors" and "consts/field/warp_rows". A JAX
-          run's Orbax checkpoint becomes that file by ``np.savez`` of its
-          restored leaves, with the JAX package installed::
-
-              state = f2nerf_tpu.train.checkpoint.restore(run / "checkpoints", template)
-              flat = convert.flatten(jax.tree.map(np.asarray, state["params"]))
-              flat["occ_grid"] = np.asarray(state["extra"]["occ_grid"])
-              flat.update(convert.flatten(
-                  jax.tree.map(np.asarray, state["consts"]), "consts/"))
-              np.savez(run / "torch_params.npz", **flat)
-
-          where ``template`` is built as in the JAX
-          ``Localizer.from_checkpoint``, plus, in perspective mode, the
-          tables in its ``consts`` as the JAX ``Trainer`` builds them
-          (``train/loop.py:90-94``: ``build_warp`` of the training
-          poses); without them Orbax refuses a warp run's checkpoint.
+          "occ_grid" and the field's constants under "consts/field/": the
+          warp tables of a perspective-warp run ("warp_anchors",
+          "warp_rows") and the hash constants of an xor run ("primes",
+          "biases", "scales"). ``scripts/export_torch_params.py`` writes
+          it from a JAX run's Orbax checkpoint (it needs the JAX
+          package).
 
         Raises ``FileNotFoundError`` naming both when neither exists, and
         ``ValueError`` for a perspective-warp run without its tables.
         Reads no ``yaml`` (``core/yaml_io.py``).
         """
-        from f2nerf_tpu_torch.convert import (consts_from_numpy,
-                                              params_from_numpy, unflatten)
+        from f2nerf_tpu_torch.convert import tree_from_numpy, unflatten
         from f2nerf_tpu_torch.core import yaml_io
         from f2nerf_tpu_torch.models import occupancy
         from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
@@ -244,8 +234,8 @@ class Localizer:
             consts = unflatten({k.removeprefix("consts/"): flat.pop(k)
                                 for k in list(flat)
                                 if k.startswith("consts/")})
-            params = params_from_numpy(unflatten(flat), dev)
-            consts = consts_from_numpy(consts, dev)
+            params = tree_from_numpy(unflatten(flat), dev)
+            consts = tree_from_numpy(consts, dev)
         else:
             raise FileNotFoundError(
                 f"{d} holds neither a checkpoint of the port's trainer "

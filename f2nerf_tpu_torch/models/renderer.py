@@ -1,17 +1,19 @@
 """Volume renderer: sampler -> hash field -> SH shader -> compositing
 (port of ``f2nerf_tpu/models/renderer.py``, TRAIN and VALIDATE modes).
 
-Reference ``src/renderer.{hpp,cpp}``. A single dense masked pass replaces
-the reference's two-pass early-stop compaction; it is exact because the
-keep mask is a prefix of each ray (ops/composite.py).
+Reference ``src/renderer.{hpp,cpp}``. A single dense masked pass
+replaces the reference's two-pass early-stop compaction by default; it
+is exact because the keep mask is a prefix of each ray
+(ops/composite.py). The dense sampler's TRAIN mode can take the
+two-pass instead (``dense_two_pass``, :func:`_render_two_pass`), where
+JAX takes it.
 
 Params are a plain dict with the JAX package's layout:
 ``{"field": {...}, "shader": {...}, "app_emb": [n_images, 16]}``. The
 non-trained constants are a second dict shaped like the JAX package's
-``consts``: ``{"field": {"warp_anchors", "warp_rows"}}`` in perspective
-mode, ``{}`` or None otherwise.
-The dense sampler's two-pass TRAIN path (``dense_two_pass``, off by
-default) is not ported.
+``consts``: ``{"field": {...}}`` holding the warp tables in perspective
+mode and the hash constants in xor mode (``models/hash_field.py``), ``{}``
+or None otherwise.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 
 from f2nerf_tpu_torch.core.config import ModelConfig
 from f2nerf_tpu_torch.models import hash_field, occupancy, sampler, sh_shader
-from f2nerf_tpu_torch.ops.composite import composite, density_activation
+from f2nerf_tpu_torch.ops.composite import (composite, composite_weights,
+                                            density_activation,
+                                            exclusive_cumsum)
 
 Params = dict[str, Any]
 
@@ -34,7 +38,10 @@ class RenderResult(NamedTuple):
     mask: torch.Tensor     # [R, S] bool keep mask
     t: torch.Tensor        # [R, S] sample distances
     dt: torch.Tensor       # [R, S] sample interval widths (0 = invalid)
-    sec_density: torch.Tensor | None = None  # [R, S] sigma*dt
+    # [R, S] sigma*dt; the dense two-pass returns it zeroed outside the
+    # survivor prefix ``mask`` (pass 2 never queries the tail), the single
+    # pass for every dt > 0 sample (JAX renderer.py:39-47)
+    sec_density: torch.Tensor | None = None
     explore: torch.Tensor | None = None      # [R, S] bool (occ sampler)
 
 
@@ -42,7 +49,8 @@ def init(generator: torch.Generator, cfg: ModelConfig, n_images: int,
          device: torch.device) -> Params:
     """Trainable params with the JAX package's distributions; the
     appearance embedding is 0.1 * N(0, 1). ``generator`` lives on
-    ``device``."""
+    ``device``. The non-trained constants come from
+    ``hash_field.init_consts`` and ``warp.warp_consts``."""
     return {
         "field": hash_field.init(generator, cfg, device),
         "shader": sh_shader.init(generator, cfg, device),
@@ -82,7 +90,9 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
     ``noise.march`` (dense) or ``noise.rank`` / ``noise.within`` /
     ``noise.explore`` (occ), and the per-image embedding
     ``app_emb[emb_idx]`` when ``emb_idx`` [R] is given (JAX ``render``,
-    ``renderer.py:110-175``).
+    ``renderer.py:110-175``). The dense sampler with ``dense_two_pass``
+    and a sample count divisible by 8 renders TRAIN in two passes
+    (:func:`_render_two_pass`).
 
     Args:
       rays_o, rays_d: [R, 3] ray origins/directions (dirs need not be unit).
@@ -92,10 +102,6 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
     r = rays_o.shape[0]
     train = noise is not None
     if train:
-        if cfg.sampler_mode == "dense" and cfg.dense_two_pass:
-            raise NotImplementedError(
-                "the dense two-pass TRAIN renderer (dense_two_pass) is "
-                "not ported")
         bg_color = noise.bg
     else:
         bg_color = torch.full((r, 3), 0.5, device=rays_o.device)
@@ -112,6 +118,11 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
         smp = sampler.sample_rays(rays_o, rays_d, cfg,
                                   u=noise.march if train else None)
         explore = None
+    if (train and cfg.sampler_mode == "dense" and cfg.dense_two_pass
+            and cfg.n_samples % 8 == 0):
+        ray_emb = None if emb_idx is None else params["app_emb"][emb_idx]
+        return _render_two_pass(params, smp, bg_color, cfg, level_weights,
+                                ray_emb, consts)
     if train:
         emb = (None if emb_idx is None
                else params["app_emb"][emb_idx][:, None, :])
@@ -146,6 +157,94 @@ def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,
     return RenderResult(colors=rgb, depths=depth, weights=weights,
                         mask=mask, t=t, dt=dt, sec_density=sec_density,
                         explore=explore)
+
+
+def two_pass_bucket(n: int, n_surv: int) -> int:
+    """The dense two-pass's pass-2 size for ``n_surv`` survivors of
+    ``n`` samples: the smallest of n/8, n/4, n/2 that holds them, else
+    ``n`` (the single pass)."""
+    return next((b for b in (n // 8, n // 4, n // 2) if n_surv <= b), n)
+
+
+def _render_two_pass(params, smp, bg_color, cfg, level_weights, ray_emb,
+                     consts) -> RenderResult:
+    """Dense TRAIN two-pass: the reference's early-stop compaction
+    (renderer.cpp:58-88) with static buckets (JAX ``_render_two_pass``,
+    ``renderer.py:178-312``).
+
+    Pass 1 queries the density of every sample without gradients and
+    gives the survivor prefix ``mask`` (transmittance > trans_eps). A
+    stable partition puts the survivors first, in ray-major order (two
+    cumsums and one scatter to unique indices, as JAX builds it). Pass 2
+    runs the field, the shader and the compositing, differentiably, on
+    the first NB entries of that order, NB the smallest of {RS/8, RS/4,
+    RS/2} that holds the survivors; the entries past the survivors are
+    the first non-survivors, given dt = 0. When none holds them, the
+    single pass runs (:func:`_render_samples`), having paid for pass 1.
+
+    The bucket is chosen on the host, so the survivor count is read once
+    per call: the one device sync of a two-pass training step.
+
+    Compositing: each ray's survivors are contiguous and in order, so
+    pass 2's ``sigma * dt`` and colors are scattered back to [R, S]
+    (unique indices) and composited per ray as the single pass does,
+    with the pass-1 mask. JAX sums per ray with ``segment_sum``; the port
+    keeps the scatter and the per-row sums, which are deterministic on
+    the card (no float atomics), so two steps give bitwise-equal grads.
+    """
+    r, s = smp.pts.shape[0], smp.pts.shape[1]
+    n = r * s
+    fconsts = _field_consts(consts)
+    with torch.no_grad():
+        feat1 = hash_field.query_rays(params["field"], smp.pts, cfg,
+                                      level_weights=level_weights,
+                                      consts=fconsts)
+        sigma1 = density_activation(feat1[..., 0], cfg.density_shift)
+        sec1 = torch.where(smp.dt > 0.0, sigma1 * smp.dt,
+                           torch.zeros((), device=smp.dt.device))
+        mask1 = torch.exp(-exclusive_cumsum(sec1)) > cfg.trans_eps
+    flat_mask = mask1.reshape(n)
+    n_surv = int(flat_mask.sum())                  # the host sync
+    nb = two_pass_bucket(n, n_surv)
+    if nb == n:
+        emb = None if ray_emb is None else ray_emb[:, None, :]
+        return _render_samples(params, smp.pts, smp.dirs, smp.t, smp.dt,
+                               None, bg_color, cfg, level_weights, emb,
+                               consts)
+
+    # survivors first, ray-major order kept: a stable partition of the
+    # flat mask
+    cum_in = torch.cumsum(flat_mask, 0)
+    cum_out = torch.cumsum(~flat_mask, 0)
+    pos = torch.where(flat_mask, cum_in - 1, n_surv + cum_out - 1)
+    order = torch.empty(n, dtype=torch.int64, device=pos.device)
+    order[pos] = torch.arange(n, device=pos.device)
+    idx = order[:nb]                                           # [NB]
+    ray_id = idx // s
+    valid = torch.arange(nb, device=idx.device) < n_surv
+    pts = smp.pts.reshape(n, 3)[idx]
+    dt = torch.where(valid, smp.dt.reshape(n)[idx],
+                     torch.zeros((), device=idx.device))
+    feat = hash_field.query_compacted(params["field"], pts, cfg,
+                                      level_weights=level_weights,
+                                      consts=fconsts)          # [NB, F]
+    sigma = density_activation(feat[:, 0], cfg.density_shift)
+    shading_feat = torch.cat([torch.ones_like(feat[:, :1]), feat[:, 1:]],
+                             dim=-1)
+    if ray_emb is not None:
+        shading_feat = shading_feat + ray_emb[ray_id]
+    colors = sh_shader.query(params["shader"], shading_feat[:, None, :],
+                             smp.dirs[ray_id][:, None, :], cfg)[:, 0]
+    sec = torch.where(dt > 0.0, sigma * dt, torch.zeros((), device=dt.device))
+    # back to [R, S]: zero outside the survivors, exactly
+    sec_full = sec.new_zeros(n).index_put((idx,), sec).reshape(r, s)
+    colors_full = colors.new_zeros((n, 3)).index_put(
+        (idx,), colors).reshape(r, s, 3)
+    rgb, depth, weights = composite_weights(sec_full, colors_full, smp.t,
+                                            bg_color)
+    return RenderResult(colors=rgb, depths=depth, weights=weights,
+                        mask=mask1, t=smp.t, dt=smp.dt, sec_density=sec_full,
+                        explore=None)
 
 
 @torch.no_grad()

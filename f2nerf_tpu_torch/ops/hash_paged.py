@@ -54,16 +54,6 @@ PAGE_CELLS = HALO * HALO * HALO   # 125 haloed cells, lane-padded to ROW_PAD
 _U32 = 0xFFFFFFFF
 
 
-def level_scales(n_levels: int, res_base_pow2: float = 3.0,
-                 res_fine_pow2: float = 10.0) -> np.ndarray:
-    """Per-level scale factors: exp2(base + (fine-base) * l / (L-1))
-    (``f2nerf_tpu/ops/hash_encode.py:40-46``)."""
-    lvl = np.arange(n_levels, dtype=np.float32)
-    denom = max(n_levels - 1, 1)
-    return np.exp2(res_base_pow2
-                   + (res_fine_pow2 - res_base_pow2) * lvl / denom)
-
-
 class PagedMeta(NamedTuple):
     """Static per-level constants for the paged encode."""
     n_levels: int

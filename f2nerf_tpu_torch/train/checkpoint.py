@@ -9,8 +9,10 @@ The JAX package saves with Orbax; the port saves one ``torch.save`` file,
 * ``step``: the training step;
 * ``occ_grid``: the occupancy grid (or None);
 * ``consts``: the flattened non-trained constants (the warp tables,
-  "field/warp_anchors" and "field/warp_rows", in perspective mode; empty
-  otherwise). A checkpoint written without the key reads as ``{}``.
+  "field/warp_anchors" and "field/warp_rows", in perspective mode; the
+  hash constants "field/primes" (int64), "field/biases" and
+  "field/scales" in xor mode; empty otherwise). A checkpoint written
+  without the key reads as ``{}``.
 
 It is read back onto the CPU with ``torch.load(weights_only=True)``,
 which unpickles only tensors and plain containers. The file is written

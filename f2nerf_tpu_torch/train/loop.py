@@ -39,11 +39,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from f2nerf_tpu_torch.convert import params_from_numpy, unflatten
+from f2nerf_tpu_torch.convert import tree_from_numpy, unflatten
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.data.dataset import Dataset
-from f2nerf_tpu_torch.models import occupancy, renderer
+from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.models.warp import warp_consts
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
@@ -74,12 +74,18 @@ class Trainer:
     """Trains the field on ``dataset``; runs on ``cuda`` unless ``device``
     says otherwise.
 
-    ``consts`` holds the renderer's non-trained constants: in
-    ``warp_mode="perspective"`` the warp tables built from
-    ``dataset.poses`` (JAX ``train/loop.py:90-94``), else ``{}``.
+    ``consts`` holds the renderer's non-trained constants,
+    ``{"field": {...}}``: in ``warp_mode="perspective"`` the warp tables
+    built from ``dataset.poses`` (JAX ``train/loop.py:90-94``), in
+    ``hash_mode="xor"`` the hash constants (``hash_field.init_consts``,
+    the primes drawn with ``cfg.train.seed`` as the JAX ``Trainer``
+    draws them); ``{}`` when there are none.
 
     ``params``: start from these (a nested dict of numpy arrays, e.g. a
-    JAX run's params) instead of a seeded init. ``noise_fn(step, n_rays)
+    JAX run's params) instead of a seeded init. ``consts``: take these
+    (numpy, e.g. that run's consts) instead of building them; in xor mode
+    ``params`` needs them, since the features were trained under that
+    run's xor biases. ``noise_fn(step, n_rays)
     -> StepNoise`` gives each step's draws (default:
     ``train.step.draw_noise``). ``profile_dir``: trace steps
     ``profile_steps[0]`` to ``profile_steps[1]`` with ``torch.profiler``
@@ -90,6 +96,7 @@ class Trainer:
                  result_dir: str | pathlib.Path | None = None,
                  device: str | torch.device | None = None,
                  params: Mapping[str, Any] | None = None,
+                 consts: Mapping[str, Any] | None = None,
                  noise_fn: Callable[[int, int], StepNoise] | None = None,
                  profile_dir: str | pathlib.Path | None = None,
                  profile_steps: tuple[int, int] = (10, 15)):
@@ -107,14 +114,24 @@ class Trainer:
         # column stays monotonic when a driver trains in chunks
         self._elapsed_s = 0.0
 
+        gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                cfg.train.seed)
             self.params = renderer.init(gen, cfg.model, dataset.n_images,
                                         self.device)
         else:
-            self.params = params_from_numpy(params, self.device)
-        self.consts = warp_consts(dataset.poses, cfg.model, self.device)
+            self.params = tree_from_numpy(params, self.device)
+        if consts is not None:
+            self.consts = tree_from_numpy(consts, self.device)
+        elif params is not None and cfg.model.hash_mode == "xor":
+            raise ValueError("hash_mode='xor' with params= needs consts=: "
+                             "the xor biases the params were trained with")
+        else:
+            field_consts = {
+                **hash_field.init_consts(gen, cfg.model, self.device,
+                                         np_seed=cfg.train.seed),
+                **warp_consts(dataset.poses, cfg.model,
+                              self.device).get("field", {})}
+            self.consts = {"field": field_consts} if field_consts else {}
         self.optimizer = make_optimizer(self.params, cfg.train)
         self.occ_grid = occupancy.init_grid(cfg.model, self.device)
         self.step = 0

@@ -7,7 +7,11 @@ Charbonnier color loss (:78) plus a ramped weight-variance loss
 and intrinsics; the host ships (cam_idx, ij, gt) per step. The step
 number is a host int, so the occupancy cadence, the loss ramps and the
 level anneal are decided on the host with no device sync; the metrics
-stay device tensors (no ``.item()`` in the step).
+stay device tensors (no ``.item()`` in the step). One path syncs: the
+dense two-pass renderer (``dense_two_pass``) reads its survivor count
+once per step to pick its bucket on the host, where JAX's
+``lax.switch`` picks it on the device; a CUDA graph of such a step needs
+one graph per bucket.
 
 Randomness: one ``torch.Generator`` per step, seeded from
 (``cfg.train.seed``, step), so a step's draws do not depend on how many

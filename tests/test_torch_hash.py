@@ -250,9 +250,10 @@ def test_weight_row_matches_jax():
 
 def test_level_scales_match():
     from f2nerf_tpu.ops.hash_encode import level_scales
+    from f2nerf_tpu_torch.ops.hash_encode import level_scales as t_scales
 
     for n in (2, 8, 16):
-        x, y = thp.level_scales(n), level_scales(n)
+        x, y = t_scales(n), level_scales(n)
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(x, y)
 

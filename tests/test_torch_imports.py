@@ -46,9 +46,11 @@ def test_port_module_list_is_complete():
     assert "f2nerf_tpu_torch.train.optim" in PORT_MODULES
     for name in ("data.dataset", "data.synthetic", "data.native_loader",
                  "train.loop", "train.checkpoint", "apps.main",
-                 "core.yaml_io", "utils.timer", "models.warp"):
+                 "core.yaml_io", "utils.timer", "models.warp",
+                 "apps.ros2_node", "ops.hash_encode", "utils.lpips",
+                 "utils.undistort"):
         assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
-    assert len(PORT_MODULES) >= 32
+    assert len(PORT_MODULES) >= 36
 
 
 @pytest.fixture(scope="module")

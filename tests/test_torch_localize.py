@@ -31,7 +31,7 @@ from f2nerf_tpu.models import occupancy as jocc
 from f2nerf_tpu.models import renderer as jrend
 from f2nerf_tpu.utils.image_io import resize_image as jresize
 from f2nerf_tpu_torch.apps import serve as tserve
-from f2nerf_tpu_torch.convert import flatten, params_from_numpy
+from f2nerf_tpu_torch.convert import flatten, tree_from_numpy
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.localize import localizer as tloc
 from f2nerf_tpu_torch.models import occupancy as tocc
@@ -63,7 +63,7 @@ def _make_scene(cfg, seed):
                             occ_bits=jocc.occ_values(jnp.asarray(grid),
                                                      cfg.model),
                             seed=seed)
-        tl = tloc.Localizer(params_from_numpy(tree, "cpu"), tcfg, INTR,
+        tl = tloc.Localizer(tree_from_numpy(tree, "cpu"), tcfg, INTR,
                             CENTER, RADIUS, H, W,
                             occ_vals=tocc.occ_values(torch.from_numpy(grid),
                                                      tcfg.model),
@@ -285,5 +285,5 @@ def test_localizer_needs_a_card_by_default(scene):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tloc.Localizer(params_from_numpy(scene["tree"], "cpu"),
+        tloc.Localizer(tree_from_numpy(scene["tree"], "cpu"),
                        scene["tcfg"], INTR, CENTER, RADIUS, H, W)

@@ -22,7 +22,7 @@ from f2nerf_tpu.models import occupancy as jocc
 from f2nerf_tpu.models import renderer as jrend
 from f2nerf_tpu.models import sampler as jsamp
 from f2nerf_tpu.models import sh_shader as jsh
-from f2nerf_tpu_torch.convert import params_from_numpy
+from f2nerf_tpu_torch.convert import tree_from_numpy
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.models import hash_field as thf
 from f2nerf_tpu_torch.models import occupancy as tocc
@@ -46,7 +46,7 @@ def _setup(jcfg, seed=0):
     tree["field"]["mlp"]["b"][0] = 4.0
     jparams = jax.tree.map(jnp.asarray, tree)
     tcfg = TConfig.from_dict(dataclasses.asdict(jcfg))
-    tparams = params_from_numpy(tree, "cpu")
+    tparams = tree_from_numpy(tree, "cpu")
     g = jcfg.model.occ_grid_res
     thresh = jocc.sigma_threshold(jcfg.model)
     dense = (rng.random((g, g, g)) < 0.25).astype(np.float32) * 2 * thresh
@@ -136,8 +136,8 @@ def test_field_init_and_haloed_cache(dense):
     cached = dict(p, haloed=thf.haloed_table(p, cfg))
     torch.testing.assert_close(thf.query(cached, pts, cfg),
                                thf.query(p, pts, cfg), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        thf.init(g, dataclasses.replace(cfg, hash_mode="xor"),
+    with pytest.raises(ValueError, match="hash_mode"):
+        thf.init(g, dataclasses.replace(cfg, hash_mode="cuckoo"),
                  torch.device("cpu"))
 
 

@@ -43,8 +43,7 @@ from f2nerf_tpu.train.optim import lr_schedule as jlr_schedule
 from f2nerf_tpu.train.optim import make_optimizer as jmake_optimizer
 from f2nerf_tpu.train.step import make_train_step as jmake_train_step
 from f2nerf_tpu_torch.convert import (flatten, occ_grid_from_numpy,
-                                      opt_state_from_numpy,
-                                      params_from_numpy)
+                                      opt_state_from_numpy, tree_from_numpy)
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.models import warp as twarp
 from f2nerf_tpu_torch.train import optim as topt
@@ -150,7 +149,7 @@ def _run(jcfg, seed, step0, n_steps=N_STEPS):
     jstate = jopt.init(jparams)
     jgrid = jnp.asarray(grid) if use_occ else jnp.zeros((1,))
 
-    tparams = params_from_numpy(tree, "cpu")
+    tparams = tree_from_numpy(tree, "cpu")
     opt = topt.make_optimizer(tparams, tcfg.train)
     tstep_fn = tstep.make_train_step(tcfg, opt)
     tgrid = torch.tensor(grid) if use_occ else None
@@ -284,7 +283,7 @@ def test_converted_state_step(runs):
     run = runs["occ"]
     k = 2
     before = run["jax"][k]
-    tparams = params_from_numpy(jax.tree.map(np.asarray, before["params"]),
+    tparams = tree_from_numpy(jax.tree.map(np.asarray, before["params"]),
                                 "cpu")
     opt = topt.make_optimizer(tparams, run["tcfg"].train)
     opt_state_from_numpy(opt, jax.tree.map(np.asarray, before["state"]))

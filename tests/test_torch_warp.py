@@ -51,8 +51,7 @@ from f2nerf_tpu.models import renderer as jrend
 from f2nerf_tpu.models import warp as jwarp
 from f2nerf_tpu.ops import contraction as jcon
 from f2nerf_tpu.train.loop import Trainer as JTrainer
-from f2nerf_tpu_torch.convert import (consts_from_numpy, flatten,
-                                      params_from_numpy, unflatten)
+from f2nerf_tpu_torch.convert import flatten, tree_from_numpy, unflatten
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.data import dataset as tdata
 from f2nerf_tpu_torch.data.synthetic import make_corridor_dataset as tcorridor
@@ -109,7 +108,7 @@ def _setup(jcfg, poses, seed):
     grid = np.stack([dense, dense])
     return dict(jcfg=jcfg, tcfg=tcfg, tree=tree, grid=grid,
                 jp=jax.tree.map(jnp.asarray, tree), jc=_jtables(poses, jcfg),
-                tp=params_from_numpy(tree, "cpu"),
+                tp=tree_from_numpy(tree, "cpu"),
                 tc=twarp.warp_consts(poses, tcfg.model, "cpu"),
                 jvals=jocc.occ_values(jnp.asarray(grid), jcfg.model),
                 tvals=tocc.occ_values(torch.from_numpy(grid), tcfg.model))
@@ -467,9 +466,9 @@ def test_from_checkpoint_warp_run(tiny_cfg, sphere_ds, tmp_path):
 
 
 def test_consts_from_numpy(dense):
-    c = consts_from_numpy(jax.tree.map(np.asarray, dense["jc"]), "cpu")
+    c = tree_from_numpy(jax.tree.map(np.asarray, dense["jc"]), "cpu")
     for key in thf.WARP_KEYS:
         t = c["field"][key]
         assert t.dtype == torch.float32
         np.testing.assert_array_equal(t.numpy(), dense["tc"]["field"][key])
-    assert consts_from_numpy({"field": {}}, "cpu") == {"field": {}}
+    assert tree_from_numpy({"field": {}}, "cpu") == {"field": {}}
