@@ -113,10 +113,33 @@ Phases (each passes or raises; the script exits 0 only if all pass):
 12. LPIPS (``lpips_phase``): random weights, two renders of phase 6's
    map against their views, on the card and on the CPU (rel. 1e-4).
 
+13. The multi-device path (``distributed_phase``; ``parallel/mesh.py``):
+   the training phase's point (``Config()``, 8192 rays, steps 3072-3075
+   with the refresh at 3072) in the default mode and with
+   ``grad_blocks=4``, then 3 mode-0 requests and one mode-1 request of
+   phases 3 and 5 through a ``LocalizerService``, each (a) in process
+   with no process group, (b) as one NCCL rank and (c) as two gloo ranks
+   sharing ``cuda:0`` (this script again, ``--dist-worker``, in
+   torchrun's environment; every process given ``DIST_TIMEOUT_S``). (b)
+   equals (a) bitwise in both modes, (c) in ``grad_blocks`` mode; (c)'s
+   default mode is held to the CPU test's tolerances (``check_close``);
+   renders, particle weights and reply poses agree to 1e-6; the ranks
+   hold the same state bitwise. Step ms, device ms with the collective's
+   share, peak memory per rank; (c)'s times are two processes
+   time-slicing one card. Then ``torchrun --nproc_per_node=2 -m
+   f2nerf_tpu_torch.apps.main train`` (gloo on ``cuda:0``, the textured
+   dataset, ``Config.quality`` with ``grad_blocks=4``, 50 steps) against
+   the same command in process: ``state.pt`` params and grid bitwise
+   equal, the logs' losses equal; one mode-0 request served from the
+   torchrun run. Launches per path ``distributed/{a,b,c}/{train,
+   grad_blocks,mode0,mode1}`` (summed over the ranks) and
+   ``distributed/run/{train_a,mode0}``.
+
 A phase that fails is reported and the others still run; the script
 then exits non-zero. Otherwise one JSON line per the kernels (with the
 launches by path: the warp paths under ``warp/``, the node's under
-``node/``, the two-pass's under ``dense/``, xor's under ``xor/``), the
+``node/``, the two-pass's under ``dense/``, xor's under ``xor/``, the
+multi-device paths' under ``distributed/``), the
 ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -131,7 +154,9 @@ import importlib
 import importlib.abc
 import importlib.util
 import json
+import os
 import pathlib
+import socket
 import subprocess
 import sys
 import tempfile
@@ -142,6 +167,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from f2nerf_tpu_torch.apps import main as cli
 from f2nerf_tpu_torch.apps.serve import LocalizerService
@@ -157,6 +183,7 @@ from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.models.warp import build_warp, warp_consts
 from f2nerf_tpu_torch.ops import hash_paged
+from f2nerf_tpu_torch.parallel import mesh as mesh_lib
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.loop import Trainer
 from f2nerf_tpu_torch.train.optim import make_optimizer
@@ -937,10 +964,10 @@ def o1_params(cfg: Config, seed: int, dev: torch.device) -> dict:
 def make_localizer(cfg: Config, seed: int, dev: torch.device,
                    params: dict | None = None, resize: int = RESIZE,
                    where: torch.device | None = None,
-                   consts: dict | None = None) -> Localizer:
+                   consts: dict | None = None, mesh=None) -> Localizer:
     """A localizer of the 850x1920 frame at ``resize`` on ``where``
-    (default ``dev``), with ``params`` (default: the init's, seeded) and
-    ``consts`` (the warp tables of a perspective ``cfg``)."""
+    (default ``dev``), with ``params`` (default: the init's, seeded),
+    ``consts`` (the warp tables of a perspective ``cfg``) and ``mesh``."""
     if params is None:
         g = torch.Generator(device=dev).manual_seed(seed)
         params = renderer.init(g, cfg.model, 4, dev)
@@ -949,7 +976,7 @@ def make_localizer(cfg: Config, seed: int, dev: torch.device,
     return Localizer(params, cfg, intr, np.zeros(3), 1.0, FRAME_H, FRAME_W,
                      param=LocalizerParam(resize_factor=resize),
                      occ_vals=seeded_occ_vals(cfg, dev), seed=seed,
-                     device=where or dev, consts=consts)
+                     device=where or dev, consts=consts, mesh=mesh)
 
 
 def target_frame(loc: Localizer, shift=(0.01, -0.005, 0.02)
@@ -1249,7 +1276,7 @@ def _subpath(name: str, used: tuple, fn) -> tuple[dict, object]:
     out = fn()
     torch.cuda.synchronize()
     res = {"wall_s": time.perf_counter() - t0, "launches": read_launches()}
-    check_launches(f"run-directory {name}", res["launches"], used)
+    check_launches(name, res["launches"], used)
     return res, out
 
 
@@ -1495,6 +1522,20 @@ def profile_call(fn, what: str) -> dict:
         log(f"  {ms:8.3f} ms  {name[:100]}")
     res = {"wall_ms": wall_ms, "device_ms": device_ms,
            "top": [[name[:60], ms] for name, ms in top]}
+    spans = [e for e in prof.key_averages() if e.key == "mesh/all_reduce"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    if spans:
+        # the collective: its host time, NCCL's kernels, and the copies
+        # to and from pinned host memory that gloo's all-reduce of CUDA
+        # tensors makes (it reduces on the host)
+        res["collective"] = {
+            "calls": sum(e.count for e in spans),
+            "host_ms": sum(e.cpu_time_total for e in spans) / 1e3,
+            "nccl_device_ms": sum(ms for k, ms in kernels.items()
+                                  if "nccl" in k.lower()),
+            "host_copy_ms": sum(ms for k, ms in kernels.items()
+                                if k.startswith(("Memcpy DtoH",
+                                                 "Memcpy HtoD")))}
     warp = scope_ms(prof, "warp_points")
     if warp["calls"]:
         log(f"  the warp (warp_points, {warp['calls']} calls): "
@@ -2169,13 +2210,442 @@ def lpips_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
     return {"cuda": dist["cuda"], "cpu": dist["cpu"], "rel": rel, "ms": ms}
 
 
+# -- phase 13: the multi-device path ------------------------------------------
+
+DIST_STEPS = 4           # steps STEP0 .. STEP0 + 3: the refresh at STEP0
+DIST_BLOCKS = 4          # grad_blocks of the bitwise mode on the card
+DIST_MODES = {"train": 0, "grad_blocks": DIST_BLOCKS}   # path: grad_blocks
+DIST_RUN_STEPS = 50      # apps.main train at world size 2
+DIST_REPORT = 10
+DIST_TIMEOUT_S = 600     # a worker still running then fails the phase
+# any two runs' renders, particle weights and reply poses
+DIST_RENDER_TOL = 1e-6
+# (c)'s default mode against (a), the CPU test's tolerances by dtype: the
+# f32 metrics rtol 1e-5; grads atol 1e-3 x the leaf's largest |grad| for
+# the f32 leaves and 1e-2 x for feat_pool, whose grad sums bf16 page rows
+# (a row rounds by 2^-8 whatever the grouping); params as phase 7's check
+DIST_GRAD_TOL = {"field/feat_pool": 1e-2}
+
+
+def dist_cfg(blocks: int) -> Config:
+    cfg = train_cfg(TRAIN_RAYS)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, grad_blocks=blocks))
+
+
+def _ranks_agree(mesh, tensors: list) -> bool:
+    """Whether every rank holds rank 0's values of ``tensors`` bitwise."""
+    flat = torch.cat([t.detach().reshape(-1).to(mesh.device)
+                      for t in tensors])
+    ref = mesh_lib.replicate(mesh, flat.clone())
+    return not mesh_lib.any_rank(mesh, not torch.equal(flat, ref))
+
+
+def dist_train(blocks: int, seed: int, dev: torch.device, mesh,
+               label: str) -> dict:
+    """DIST_STEPS steps of the training phase's point (its seeded params,
+    grid and first batches, the draws of ``draw_noise``) on ``mesh`` (None:
+    in process, no process group): the state the checks compare, step
+    times, peak memory, launches, and one more step profiled."""
+    cfg = dist_cfg(blocks)
+    params, opt, _ = make_trainer(cfg, seed, dev)
+    step_fn = make_train_step(cfg, opt, mesh=mesh)
+    poses, intr = cameras(dev)
+    grid = seeded_grid(cfg, dev)
+    rng = np.random.default_rng(seed)
+    batches = [mesh_lib.shard_batch(mesh, *batch(rng, TRAIN_RAYS, dev))
+               for _ in range(DIST_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    times, metrics, lrs = [], [], []
+    for k in range(DIST_STEPS):
+        lrs.append(max(g["lr"] for g in opt.adam.param_groups))
+        t0 = time.perf_counter()
+        grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(torch.stack(tuple(m)))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    named = opt.named
+    state = {"metrics": torch.stack(metrics).cpu(), "lr": lrs,
+             "grid": grid.cpu(),
+             "params": {n: p.detach().cpu() for n, p in named.items()},
+             "grads": {n: p.grad.cpu() for n, p in named.items()},
+             "exp_avg": {n: opt.adam.state[p]["exp_avg"].cpu()
+                         for n, p in named.items()},
+             "exp_avg_sq": {n: opt.adam.state[p]["exp_avg_sq"].cpu()
+                            for n, p in named.items()}}
+    agree = (mesh is None or _ranks_agree(mesh, [
+        grid, *named.values(), *(p.grad for p in named.values()),
+        *(opt.adam.state[p][k] for p in named.values()
+          for k in ("exp_avg", "exp_avg_sq"))]))
+    log(f"{label}: {'grad_blocks=%d' % blocks if blocks else 'default'} "
+        f"steps {STEP0}-{STEP0 + DIST_STEPS - 1} at {TRAIN_RAYS} rays: "
+        f"{[round(t, 2) for t in times]} ms (the first refreshes); peak "
+        f"memory {peak_gb:.2f} GiB; losses "
+        f"{[round(float(x), 6) for x in state['metrics'][:, 0]]}")
+    prof = profile_call(lambda: step_fn(params, grid, poses, intr,
+                                        STEP0 + DIST_STEPS, *batches[0]),
+                        f"{label} step")
+    return {"state": state, "ranks_agree": agree, "step_ms": times,
+            "peak_mem_gb": peak_gb, "launches": launches, "profile": prof}
+
+
+def dist_serve(seed: int, dev: torch.device, mesh, label: str) -> dict:
+    """The serving phase's 3 mode-0 requests and one mode-1 request of the
+    differential phase's O(1) map through a ``LocalizerService`` on
+    ``mesh``; then the particle weights of 16 seeded poses and the render
+    at the identity pose, which the checks compare."""
+    cfg = Config()
+    out = {}
+    for mode, params, used in (
+            (0, None, ("trilinear_fwd",)),
+            (1, o1_params(cfg, seed + 6, dev),
+             ("trilinear_fwd", "trilinear_bwd_frac"))):
+        loc = make_localizer(cfg, seed, dev, params=params, mesh=mesh)
+        svc = LocalizerService(loc)
+        pose, target = target_frame(loc)
+        if not svc.handle({"cmd": "init_pose",
+                           "pose": loc.camera2world(pose).tolist()})["ok"]:
+            raise RuntimeError("init_pose failed")
+        req = {"cmd": "localize", "image": target.tolist(), "mode": mode}
+        if mode == 0:
+            req["particle_num"] = PARTICLES
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_launches()
+        times, poses = [], []
+        for k in range(N_REQUESTS if mode == 0 else 1):
+            t0 = time.perf_counter()
+            r = svc.handle(req)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check_reply(r, f"{label} mode-{mode} request {k}")
+            poses.append(r["pose"])
+        launches = read_launches()
+        check_launches(f"{label} mode {mode}", launches, used)
+        res = {"ms": times, "poses": torch.tensor(poses), "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if mode == 0:
+            probe = np.random.default_rng(seed + 9)
+            cands = np.repeat(pose[None], 16, 0)
+            cands[:, :, 3] += probe.normal(0.0, 0.02, (16, 3))
+            res["weights"] = torch.as_tensor(
+                loc.evaluate_poses(cands.astype(np.float32), target))
+            res["render"] = loc.render_image(pose).cpu()
+        log(f"{label}: mode-{mode} requests {[round(t, 1) for t in times]} "
+            f"ms, peak memory {res['peak_mem_gb']:.2f} GiB")
+        out[f"mode{mode}"] = res
+    return out
+
+
+def dist_worker(args) -> int:
+    """One rank of phase 13's (b) or (c): both training modes, then the
+    requests, on a mesh of the process group; results saved for rank 0
+    to check."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.maybe_initialize_distributed(backend=args.backend,
+                                                device=args.device)
+    if dev is None:
+        raise RuntimeError("--dist-worker needs WORLD_SIZE, RANK, "
+                           "MASTER_ADDR and MASTER_PORT")
+    mesh = mesh_lib.make_mesh(device=dev)
+    label = f"({args.dist_worker}) rank {mesh.rank} of {mesh.size}"
+    res = {}
+    try:
+        for path, blocks in DIST_MODES.items():
+            res[path] = dist_train(blocks, args.seed, dev, mesh, label)
+            if mesh.rank:
+                res[path].pop("state")
+        res["serve"] = dist_serve(args.seed, dev, mesh, label)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, pathlib.Path(args.work) / f"rank{mesh.rank}.pt")
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wait_all(procs: list, what: str) -> float:
+    """Wait for every process (each at most DIST_TIMEOUT_S), echo its
+    output, kill the rest on a failure; returns the wall seconds."""
+    t0 = time.perf_counter()
+    try:
+        for k, p in enumerate(procs):
+            out, err = p.communicate(timeout=DIST_TIMEOUT_S)
+            for line in out.splitlines():
+                log(f"  [{what} {k}] {line}")
+            if p.returncode != 0:
+                raise RuntimeError(f"{what} process {k} exited "
+                                   f"{p.returncode}:\n{err[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def run_ranks(name: str, world: int, backend: str, device: str | None,
+              seed: int, work: pathlib.Path) -> list[dict]:
+    """Phase 13's worker as ``world`` processes of a ``backend`` group
+    (torchrun's environment, a free port on localhost); each rank's
+    results."""
+    work.mkdir(parents=True)
+    env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()))
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+           "--dist-worker", name, "--work", str(work), "--seed", str(seed),
+           "--backend", backend] + (["--device", device] if device else [])
+    procs = [subprocess.Popen(cmd, env=dict(env, RANK=str(r),
+                                            LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    wall = _wait_all(procs, f"({name}) rank")
+    log(f"({name}) {world} process(es), {backend}: {wall:.1f} s")
+    return [torch.load(work / f"rank{r}.pt", weights_only=True)
+            for r in range(world)]
+
+
+def _flat_state(state: dict) -> dict:
+    out = {"metrics": state["metrics"], "grid": state["grid"]}
+    for part in ("params", "grads", "exp_avg", "exp_avg_sq"):
+        out.update({f"{part}/{n}": t for n, t in state[part].items()})
+    return out
+
+
+def check_equal(state: dict, ref: dict, what: str) -> None:
+    """Every tensor of a run's state ``torch.equal`` to the reference's."""
+    a, b = _flat_state(state), _flat_state(ref)
+    unequal = [k for k in b if not torch.equal(a[k], b[k])]
+    if unequal:
+        raise RuntimeError(f"{what}: not bitwise equal in {unequal}")
+
+
+def check_close(state: dict, ref: dict, what: str) -> dict:
+    """(c)'s default mode against (a) at DIST_GRAD_TOL's tolerances;
+    returns each leaf's worst error over its tolerance's scale."""
+    if not torch.allclose(state["metrics"], ref["metrics"], rtol=1e-5,
+                          atol=0):
+        raise RuntimeError(f"{what}: metrics {state['metrics']} vs "
+                           f"{ref['metrics']}")
+    worst = {}
+    for name, g in ref["grads"].items():
+        scale = float(g.abs().max())
+        err = float((state["grads"][name] - g).abs().max())
+        worst[f"grad {name}"] = err / max(scale, 1e-30)
+        if err > DIST_GRAD_TOL.get(name, 1e-3) * scale:
+            raise RuntimeError(f"{what}: grad {name} off by {err:.3e} "
+                               f"(largest {scale:.3e})")
+    lr_sum, lr_max = sum(ref["lr"]), max(ref["lr"])
+    for name, p in ref["params"].items():
+        d = (state["params"][name] - p).abs()
+        far = float((d > 0.05 * lr_max).float().mean())
+        worst[f"param {name}"] = float(d.max()) / lr_max
+        if float(d.max()) > 2.05 * lr_sum or far > 1e-3:
+            raise RuntimeError(f"{what}: param {name} off by "
+                               f"{float(d.max()):.3e}, share beyond 0.05 lr "
+                               f"{far:.2e} (lr {ref['lr']})")
+    return worst
+
+
+def check_serve(res: dict, ref: dict, what: str) -> dict:
+    """Renders, particle weights and reply poses within DIST_RENDER_TOL."""
+    errs = {}
+    for key in ("render", "weights"):
+        errs[key] = float((res["mode0"][key] - ref["mode0"][key]).abs().max())
+    for mode in ("mode0", "mode1"):
+        errs[f"{mode} poses"] = float(
+            (res[mode]["poses"] - ref[mode]["poses"]).abs().max())
+    if max(errs.values()) > DIST_RENDER_TOL:
+        raise RuntimeError(f"{what}: requests differ from (a): {errs}")
+    return errs
+
+
+def _collective(prof: dict) -> str:
+    c = prof.get("collective")
+    if not c:
+        return "no collective"
+    share = (c["nccl_device_ms"] + c["host_copy_ms"]) / max(
+        prof["device_ms"], 1e-9)
+    return (f"collective: {c['host_ms']:.2f} ms on the host clock "
+            f"({c['host_ms'] / prof['wall_ms']:.1%} of the wall); on the "
+            f"device NCCL kernels {c['nccl_device_ms']:.3f} ms and copies "
+            f"to / from the host {c['host_copy_ms']:.3f} ms ({share:.1%} "
+            f"of the device time)")
+
+
+def _dist_record(name: str, rank: int, key: str, rk: dict) -> dict:
+    """A run's times, device time, collective and peak memory, logged."""
+    slicing = (" (two processes time-slicing one card: not a scaling "
+               "figure)" if name == "c" else "")
+    if key == "serve":
+        rec = {m: {"ms": rk[m]["ms"], "peak_mem_gb": rk[m]["peak_mem_gb"]}
+               for m in ("mode0", "mode1")}
+        log(f"({name}) rank {rank} requests: mode 0 "
+            f"{[round(t, 1) for t in rec['mode0']['ms']]} ms, mode 1 "
+            f"{[round(t, 1) for t in rec['mode1']['ms']]} ms{slicing}")
+        return rec
+    prof = rk["profile"]
+    rec = {"step_ms": rk["step_ms"], "peak_mem_gb": rk["peak_mem_gb"],
+           "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+           "collective": prof.get("collective")}
+    log(f"({name}) rank {rank} {key}: steps "
+        f"{[round(t, 2) for t in rk['step_ms'][1:]]} ms after the refresh "
+        f"step; profiled step {prof['wall_ms']:.2f} ms wall, "
+        f"{prof['device_ms']:.2f} ms device; {_collective(prof)}; peak "
+        f"{rk['peak_mem_gb']:.2f} GiB{slicing}")
+    return rec
+
+
+def dist_run(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
+    """``apps.main train`` through ``torchrun`` at world size 2 (gloo on
+    ``cuda:0``) and in process with no process group, on the textured
+    dataset, ``grad_blocks`` = DIST_BLOCKS: the two ``state.pt`` equal
+    bitwise; then a mode-0 request served from the torchrun run."""
+    data = root / "data"
+    save_dataset(make_textured_dataset(seed=seed), data)
+    cfg = Config.quality(end_iter=DIST_RUN_STEPS)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, grad_blocks=DIST_BLOCKS, report_freq=DIST_REPORT,
+        save_freq=DIST_RUN_STEPS, vis_freq=DIST_RUN_STEPS))
+    runs = {name: root / name for name in ("a", "c")}
+    for run in runs.values():
+        run.mkdir(parents=True)
+        cfg.save(run / "train_config.yaml")
+    sub = {}
+    sub["run/train_a"], _ = _subpath(
+        "distributed train (a)", ("trilinear_fwd", "trilinear_bwd"),
+        lambda: cli.main(["train", str(runs["a"]), str(data)]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes=1",
+           "--nproc_per_node=2", "--master_addr=localhost",
+           f"--master_port={_free_port()}", "-m", "f2nerf_tpu_torch.apps.main",
+           "train", str(runs["c"]), str(data), "--device", "cuda:0",
+           "--backend", "gloo"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=pathlib.Path(__file__).resolve().parent)
+    wall_c = _wait_all([proc], "torchrun")
+    states = {k: ckpt_lib.restore(r / "checkpoints") for k, r in runs.items()}
+    a, c = states["a"], states["c"]
+    if a["step"] != DIST_RUN_STEPS or c["step"] != DIST_RUN_STEPS:
+        raise RuntimeError(f"steps {a['step']} / {c['step']}")
+    unequal = [n for n in a["params"]
+               if not torch.equal(a["params"][n], c["params"][n])]
+    if unequal or not torch.equal(a["occ_grid"], c["occ_grid"]):
+        raise RuntimeError(f"torchrun state.pt differs from (a): params "
+                           f"{unequal}, grid equal "
+                           f"{torch.equal(a['occ_grid'], c['occ_grid'])}")
+    reports = {k: _log_reports(r / "train_log.txt") for k, r in runs.items()}
+    if ([(x["step"], x["loss"]) for x in reports["a"]]
+            != [(x["step"], x["loss"]) for x in reports["c"]]
+            or len(reports["c"]) != DIST_RUN_STEPS // DIST_REPORT):
+        raise RuntimeError(f"train logs differ: {reports}")
+    log(f"torchrun apps.main train, 2 processes on one card (gloo), "
+        f"grad_blocks={DIST_BLOCKS}: {DIST_RUN_STEPS} steps in {wall_c:.1f} s "
+        f"(process start included) vs {sub['run/train_a']['wall_s']:.1f} s "
+        f"in process; state.pt params and grid bitwise equal; losses "
+        f"{[x['loss'] for x in reports['c']]}")
+    ds = load_dataset(data)
+    loc = Localizer.from_checkpoint(runs["c"])
+    svc = LocalizerService(loc)
+    true_world = loc.camera2world(ds.poses[SERVE_VIEW])
+    moved = true_world.copy()
+    moved[:3, 3] += POSE_SHIFT
+    if not svc.handle({"cmd": "init_pose", "pose": moved.tolist()})["ok"]:
+        raise RuntimeError("init_pose failed")
+    sub["run/mode0"], r = _subpath(
+        "distributed run mode 0", ("trilinear_fwd",),
+        lambda: svc.handle({"cmd": "localize", "mode": 0,
+                            "image": ds.images[SERVE_VIEW].tolist(),
+                            "particle_num": PARTICLES}))
+    check_reply(r, "a request served from the torchrun run")
+    err = (_pose_error(moved, true_world), _pose_error(r["pose"], true_world))
+    log(f"served from the torchrun run: mode 0 on view {SERVE_VIEW}, "
+        f"position error {err[0]:.4f} -> {err[1]:.4f}, "
+        f"{sub['run/mode0']['wall_s'] * 1e3:.1f} ms")
+    return {"subpaths": sub, "torchrun_s": wall_c, "reports": reports["c"],
+            "request": {"error_before": err[0], "error_after": err[1],
+                        "score": r["score"]}}
+
+
+def _sum_launches(per_rank) -> dict:
+    per_rank = list(per_rank)
+    return {k: sum(launches[k] for launches in per_rank) for k in ALL_KERNELS}
+
+
+def distributed_phase(seed: int, dev: torch.device,
+                      root: pathlib.Path) -> dict:
+    """Phase 13 (module docstring): (a) in process, (b) NCCL at world size
+    1, (c) gloo at world size 2 on one card, each in both training modes
+    and serving; the checks; then ``apps.main train`` under torchrun."""
+    a = {path: dist_train(blocks, seed, dev, None, "(a) no process group")
+         for path, blocks in DIST_MODES.items()}
+    a["serve"] = dist_serve(seed, dev, None, "(a) no process group")
+    runs = {"a": [a],
+            "b": run_ranks("b", 1, "nccl", None, seed, root / "ranks_b"),
+            "c": run_ranks("c", 2, "gloo", "cuda:0", seed, root / "ranks_c")}
+    sub, summary, serve_err = {}, {}, {}
+    for name, ranks in runs.items():
+        for path in DIST_MODES:
+            if not all(rk[path]["ranks_agree"] for rk in ranks):
+                raise RuntimeError(f"({name}) {path}: the ranks disagree")
+            # launches by path, summed over the ranks
+            sub[f"{name}/{path}"] = {"launches": _sum_launches(
+                rk[path]["launches"] for rk in ranks)}
+            check_launches(f"distributed ({name}) {path}",
+                           sub[f"{name}/{path}"]["launches"],
+                           ("trilinear_fwd", "trilinear_bwd"))
+        for mode in ("mode0", "mode1"):
+            sub[f"{name}/{mode}"] = {"launches": _sum_launches(
+                rk["serve"][mode]["launches"] for rk in ranks)}
+        for key in (*DIST_MODES, "serve"):
+            summary[f"{name}/{key}"] = [_dist_record(name, r, key, rk[key])
+                                        for r, rk in enumerate(ranks)]
+        if name != "a":
+            for r, rk in enumerate(ranks):
+                serve_err[f"{name}/rank{r}"] = check_serve(
+                    rk["serve"], a["serve"], f"({name}) rank {r}")
+    b, c = runs["b"][0], runs["c"][0]
+    check_equal(b["train"]["state"], a["train"]["state"],
+                "(b) default vs (a)")
+    check_equal(b["grad_blocks"]["state"], a["grad_blocks"]["state"],
+                "(b) grad_blocks vs (a)")
+    check_equal(c["grad_blocks"]["state"], a["grad_blocks"]["state"],
+                "(c) grad_blocks vs (a)")
+    worst = check_close(c["train"]["state"], a["train"]["state"],
+                        "(c) default vs (a)")
+    log("(b) NCCL world 1: both modes bitwise (a); (c) gloo world 2: "
+        "grad_blocks bitwise (a), default within tolerance (worst error / "
+        "scale: " + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+        + f"); requests' worst differences from (a): {json.dumps(serve_err)}")
+    run = dist_run(seed, dev, root / "run")
+    sub.update(run.pop("subpaths"))
+    return {"subpaths": sub, "summary": summary, "worst": worst,
+            "serve_err": serve_err, "run": run}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 13 runs this script as the ranks of a process group
+    ap.add_argument("--dist-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", help=argparse.SUPPRESS)
+    ap.add_argument("--backend", help=argparse.SUPPRESS)
+    ap.add_argument("--device", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(args)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2247,6 +2717,9 @@ def main() -> int:
         add_paths("node/", runs["node"])
         runs["lpips"] = phase("lpips", lpips_phase, args.seed, dev,
                               work / "contract")
+        runs["distributed"] = phase("distributed", distributed_phase,
+                                    args.seed, dev, work / "distributed")
+        add_paths("distributed/", runs["distributed"])
     runs["dense"] = phase("dense two-pass", dense_phase, args.seed, dev,
                           kernels)
     add_paths("dense/", runs["dense"])

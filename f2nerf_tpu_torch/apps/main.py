@@ -5,7 +5,14 @@ Mirrors the reference ``main.cpp:19-34`` dispatch
 (``main {train,infer,walk,test} <result_dir> [dataset_dir]``) plus a
 ``render`` batch novel-view command. Every command runs on ``cuda``
 unless ``--device`` says otherwise (``--device cpu`` runs the plain
-PyTorch path).
+PyTorch path). ``train`` launched by ``torchrun`` trains across its
+processes (``parallel/mesh.py``), one card each:
+
+  torchrun --nproc_per_node=k -m f2nerf_tpu_torch.apps.main train <result_dir> <dataset_dir>
+
+``--device`` then names every rank's device and ``--backend`` the
+process group's (default: NCCL on cards, gloo on the CPU); ``test``,
+``infer``, ``walk`` and ``render`` stay single-process, as in JAX.
 
 Usage:
   python -m f2nerf_tpu_torch.apps.main train <result_dir> <dataset_dir>
@@ -33,39 +40,57 @@ from f2nerf_tpu_torch.core.config import Config
 
 
 def cmd_train(result_dir: str, dataset_dir: str,
-              device: str | None = None) -> None:
+              device: str | None = None, backend: str | None = None
+              ) -> None:
     """Reference TrainManager (src/main_functions/train_manager.cpp):
     reads <result_dir>/train_config.yaml if present (else defaults),
     trains end_iter steps with logging, vis and checkpoints, and resumes
-    from the newest checkpoint if one exists."""
+    from the newest checkpoint if one exists. Under ``torchrun`` it joins
+    the process group (``backend``) and trains on a mesh of its ranks."""
+    import torch.distributed as dist
+
     from f2nerf_tpu_torch.data.dataset import load_dataset
+    from f2nerf_tpu_torch.parallel.mesh import (any_rank, make_mesh,
+                                                maybe_initialize_distributed)
     from f2nerf_tpu_torch.train.loop import Trainer
 
-    rd = pathlib.Path(result_dir)
-    conf = rd / "train_config.yaml"
-    cfg = Config.load(conf) if conf.exists() else Config()
-    ds = load_dataset(dataset_dir)
-    tr = Trainer(cfg, ds, result_dir=rd, device=device)
-    # graceful SIGTERM: finish the current tranche, checkpoint, exit rc 1,
-    # so a time-limited train window never loses progress and never kills
-    # the process mid-dispatch; the in-loop checkpoints still come every
-    # save_freq steps
-    got_term = {"v": False}
+    rank_dev = maybe_initialize_distributed(backend=backend, device=device)
+    if rank_dev is None and backend is not None:
+        raise SystemExit("--backend needs a torchrun launch (WORLD_SIZE "
+                         "is not set)")
+    mesh = None if rank_dev is None else make_mesh(device=rank_dev)
     try:
-        if tr.try_resume():
-            print(f"resumed from step {tr.step}")
-        prev = signal.signal(signal.SIGTERM,
-                             lambda *_: got_term.update(v=True))
+        rd = pathlib.Path(result_dir)
+        conf = rd / "train_config.yaml"
+        cfg = Config.load(conf) if conf.exists() else Config()
+        ds = load_dataset(dataset_dir)
+        tr = Trainer(cfg, ds, result_dir=rd, device=device, mesh=mesh)
+        # graceful SIGTERM: finish the current tranche, checkpoint, exit
+        # rc 1, so a time-limited train window never loses progress and
+        # never kills the process mid-dispatch; the in-loop checkpoints
+        # still come every save_freq steps. Every rank stops at the same
+        # tranche (a SIGTERM on any rank stops them all).
+        got_term = {"v": False}
         try:
-            end = cfg.train.end_iter
-            while tr.step < end and not got_term["v"]:
-                tr.run(min(100, end - tr.step))
+            if tr.try_resume():
+                print(f"resumed from step {tr.step}")
+            prev = signal.signal(signal.SIGTERM,
+                                 lambda *_: got_term.update(v=True))
+            try:
+                end = cfg.train.end_iter
+                while (tr.step < end
+                       and not any_rank(mesh, got_term["v"])):
+                    tr.run(min(100, end - tr.step))
+            finally:
+                signal.signal(signal.SIGTERM, prev)
+            tr.save_checkpoint()
+            stop = any_rank(mesh, got_term["v"])
         finally:
-            signal.signal(signal.SIGTERM, prev)
-        tr.save_checkpoint()
+            tr.close()
     finally:
-        tr.close()
-    if got_term["v"]:
+        if mesh is not None:
+            dist.destroy_process_group()
+    if stop:
         print(f"SIGTERM: checkpointed at step {tr.step}")
         raise SystemExit(1)
     print("Train done")
@@ -257,8 +282,13 @@ def main(argv=None) -> int:
     ap.add_argument("result_dir")
     ap.add_argument("extra", nargs="*")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda; 'cpu' runs the "
-                         "plain PyTorch path)")
+                    help="torch device (default: cuda, under torchrun "
+                         "cuda:LOCAL_RANK; 'cpu' runs the plain PyTorch "
+                         "path)")
+    ap.add_argument("--backend", default=None,
+                    help="train under torchrun: the process group's "
+                         "backend (default: nccl on cards, gloo on the "
+                         "CPU)")
     args = ap.parse_args(argv)
     need = {"train": 1, "test": 1, "infer": 1, "walk": 0, "render": 2}
     if len(args.extra) < need[args.command]:
@@ -267,7 +297,8 @@ def main(argv=None) -> int:
 
     dev = args.device
     if args.command == "train":
-        cmd_train(args.result_dir, args.extra[0], device=dev)
+        cmd_train(args.result_dir, args.extra[0], device=dev,
+                  backend=args.backend)
     elif args.command == "test":
         cmd_test(args.result_dir, args.extra[0], device=dev)
     elif args.command == "infer":

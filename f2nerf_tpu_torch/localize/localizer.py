@@ -19,7 +19,14 @@ Reference ``src/localizer.{hpp,cpp}``, two modes:
   ``trilinear_bwd_frac``; the field is frozen (its tensors are detached),
   so no page gradient is computed.
 
-The multi-device ``mesh`` of the JAX localizer is not ported.
+With a ``mesh`` (a ``parallel.mesh.DataMesh``, one process per card,
+JAX ``Localizer(mesh=)``), every render is sharded over its ranks: the
+particle batch and the full-frame render by ``render_rays_chunked``
+(rows gathered, so every rank scores every particle), the differential
+step by a padded pixel grid whose padding is masked out of the loss, the
+pose gradient and the loss summed over the ranks. The host ``_rng`` is
+seeded alike on every rank, so the ranks build the same rays, pick the
+same particles and keep the same pose and Adam state.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from f2nerf_tpu_torch.core.cameras import (camera2world, pixel_grid,
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.models import hash_field, renderer
+from f2nerf_tpu_torch.parallel.mesh import (DataMesh, all_reduce_sum,
+                                            replicate, shard_batch)
 
 
 @dataclasses.dataclass
@@ -148,33 +157,38 @@ class Localizer:
                  occ_vals: torch.Tensor | None = None,
                  seed: int | None = None,
                  device: str | torch.device | None = None,
-                 consts: dict[str, Any] | None = None):
+                 consts: dict[str, Any] | None = None,
+                 mesh: DataMesh | None = None):
         """``params``: the port's params dict (see ``convert``);
         ``occ_vals``: ``occupancy.occ_values`` of the trained grid, needed
         when the config samples by occupancy; ``consts``: the non-trained
         constants, ``{"field": {...}}``: the warp tables, which
         ``warp_mode="perspective"`` needs, and the hash constants, which
         ``hash_mode="xor"`` needs (raises without them). Runs on
-        ``cuda`` unless ``device`` says otherwise, and raises if there is
-        no card."""
-        self.device = resolve_device(device)
+        ``cuda`` unless ``device`` (default: the ``mesh``'s) says
+        otherwise, and raises if there is no card. ``mesh``: shard every
+        render over its ranks (module docstring); params, constants and
+        occupancy are broadcast from rank 0 once here."""
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
+        self.mesh = mesh
         self.param = param or LocalizerParam()
         if self.param.sample_near is not None:
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, sample_near=float(self.param.sample_near)))
         consts = consts or {}
         hash_field.check_consts(cfg.model, consts.get("field"))
-        self.consts = _to_device(consts, self.device)
+        self.consts = replicate(mesh, _to_device(consts, self.device))
         self.cfg = cfg
-        params = _to_device(params, self.device)
+        params = replicate(mesh, _to_device(params, self.device))
         if cfg.model.hash_mode == "paged":
             # params never change while serving, so the haloed table is
             # built once here instead of on every render
             params["field"]["haloed"] = hash_field.haloed_table(
                 params["field"], cfg.model)
         self.params = params
-        self.occ_vals = (None if occ_vals is None
-                         else occ_vals.to(self.device))
+        self.occ_vals = replicate(mesh, None if occ_vals is None
+                                  else occ_vals.to(self.device))
         self.center = torch.as_tensor(np.asarray(center, dtype=np.float32))
         self.radius = float(radius)
         f = self.param.resize_factor
@@ -188,8 +202,8 @@ class Localizer:
     @classmethod
     def from_checkpoint(cls, train_result_dir: str | pathlib.Path,
                         param: LocalizerParam | None = None,
-                        device: str | torch.device | None = None
-                        ) -> "Localizer":
+                        device: str | torch.device | None = None,
+                        mesh: DataMesh | None = None) -> "Localizer":
         """Load a run directory: ``inference_params.yaml`` and
         ``train_config.yaml`` (the files both trainers write), then the
         field, from the first of:
@@ -209,7 +223,8 @@ class Localizer:
 
         Raises ``FileNotFoundError`` naming both when neither exists, and
         ``ValueError`` for a perspective-warp run without its tables.
-        Reads no ``yaml`` (``core/yaml_io.py``).
+        Reads no ``yaml`` (``core/yaml_io.py``). Every rank of ``mesh``
+        reads the files.
         """
         from f2nerf_tpu_torch.convert import tree_from_numpy, unflatten
         from f2nerf_tpu_torch.core import yaml_io
@@ -219,7 +234,8 @@ class Localizer:
         d = pathlib.Path(train_result_dir)
         ip = yaml_io.load(d / "inference_params.yaml")
         cfg = Config.load(d / "train_config.yaml")
-        dev = resolve_device(device)
+        dev = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         npz = d / "torch_params.npz"
         if ckpt_lib.latest_step(d / "checkpoints") is not None:
             state = ckpt_lib.restore(d / "checkpoints")
@@ -253,7 +269,7 @@ class Localizer:
                    np.array(ip["normalizing_center"], dtype=np.float32),
                    float(ip["normalizing_radius"]), ip["height"],
                    ip["width"], param=param, occ_vals=occ_vals,
-                   device=dev, consts=consts)
+                   device=dev, consts=consts, mesh=mesh)
 
     # -- rendering ---------------------------------------------------------
     @torch.inference_mode()
@@ -265,7 +281,7 @@ class Localizer:
             self.params, pose_t, self.intrinsic, self.infer_height,
             self.infer_width, self.cfg.model,
             chunk=min(65536, self.infer_height * self.infer_width),
-            occ_vals=self.occ_vals, consts=self.consts)
+            occ_vals=self.occ_vals, consts=self.consts, mesh=self.mesh)
         return rgb
 
     # -- particle search ---------------------------------------------------
@@ -289,7 +305,7 @@ class Localizer:
         colors, _ = renderer.render_rays_chunked(
             self.params, rays_o.reshape(p * pix, 3),
             rays_d.reshape(p * pix, 3), self.cfg.model, chunk=65536,
-            occ_vals=self.occ_vals, consts=self.consts)
+            occ_vals=self.occ_vals, consts=self.consts, mesh=self.mesh)
         pred = torch.clamp(colors.reshape(p, pix, 3), 0.0, 1.0)
         gt = torch.as_tensor(
             np.asarray(image, dtype=np.float32).reshape(h * w, 3)[sel],
@@ -324,40 +340,65 @@ class Localizer:
                 for i in range(len(poses))]
 
     # -- differentiable mode ----------------------------------------------
-    def _frame(self, image: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        """The full pixel grid [H*W, 2] and the image [H*W, 3], on the
-        device, for the differential loss."""
+    def _frame(self, image: np.ndarray) -> tuple:
+        """This rank's pixels of the frame for the differential loss:
+        (ij [m, 2], gt [m, 3], valid [m, 1] or None, n), where n = H*W.
+        With a mesh of k ranks the grid is padded to a multiple of k with
+        pixel (0, 0) and a zero target, ``valid`` masks the padding out,
+        and this rank takes its contiguous rows (JAX ``_diff_step``)."""
         h, w = self.infer_height, self.infer_width
+        n = h * w
         ij = torch.as_tensor(pixel_grid(h, w), device=self.device)
         gt = torch.tensor(
-            np.asarray(image, dtype=np.float32).reshape(h * w, 3),
+            np.asarray(image, dtype=np.float32).reshape(n, 3),
             device=self.device)
-        return ij, gt
+        pad = -n % self.mesh.size if self.mesh is not None else 0
+        valid = None
+        if pad:
+            ij = torch.cat([ij, ij.new_zeros((pad, 2))])
+            gt = torch.cat([gt, gt.new_zeros((pad, 3))])
+            valid = (torch.arange(n + pad, device=self.device) < n
+                     ).float()[:, None]
+        ij, gt = shard_batch(self.mesh, ij, gt)
+        if valid is not None:
+            valid, = shard_batch(self.mesh, valid)
+        return ij, gt, valid, n
 
-    def _pose_loss_backward(self, pose: torch.Tensor, ij: torch.Tensor,
-                            gt: torch.Tensor) -> float:
+    def _pose_loss_backward(self, pose: torch.Tensor, frame: tuple) -> float:
         """sum((colors - gt)^2) / (n * 3) over the whole frame in one
         VALIDATE render, unclamped colors (JAX ``_diff_step``'s
         ``loss_fn``), with its gradient accumulated into the [3, 4] leaf
-        ``pose``; returns the loss."""
+        ``pose``; returns the loss. With a mesh each rank renders its
+        pixels (:meth:`_frame`), and the gradient and the loss are summed
+        over the ranks."""
+        ij, gt, valid, n = frame
         with torch.enable_grad():
             rays_o, rays_d = rays_from_pose(pose[None], self.intrinsic[None],
                                             ij)
             res = renderer.render(self.params, rays_o, rays_d,
                                   self.cfg.model, occ_vals=self.occ_vals,
                                   consts=self.consts)
-            loss = torch.sum((res.colors - gt) ** 2) / (ij.shape[0] * 3)
+            err = (res.colors - gt) ** 2
+            if valid is not None:
+                err = err * valid
+            loss = torch.sum(err) / (n * 3)
             loss.backward()
-        return float(loss.detach())
+        loss = loss.detach()
+        if self.mesh is not None:
+            flat = all_reduce_sum(self.mesh, torch.cat(
+                [pose.grad.reshape(-1), loss[None]]))
+            pose.grad.copy_(flat[:-1].view_as(pose))
+            loss = flat[-1]
+        return float(loss)
 
     def _diff_step_auto(self, pose: torch.Tensor, opt: torch.optim.Adam,
-                        ij: torch.Tensor, gt: torch.Tensor) -> float:
+                        frame: tuple) -> float:
         """One Adam step of the [3, 4] leaf ``pose`` in place, at the lr
         of ``opt``'s param group; returns the loss at the input pose.
         Both differential modes take it: the lr lives in the param group,
         so the backtracking loop halves it without a new step."""
         opt.zero_grad(set_to_none=True)
-        loss = self._pose_loss_backward(pose, ij, gt)
+        loss = self._pose_loss_backward(pose, frame)
         opt.step()
         return loss
 
@@ -367,7 +408,7 @@ class Localizer:
         a step of the differential modes descends."""
         leaf = torch.tensor(np.asarray(pose, dtype=np.float32),
                             device=self.device, requires_grad=True)
-        loss = self._pose_loss_backward(leaf, *self._frame(image))
+        loss = self._pose_loss_backward(leaf, self._frame(image))
         return loss, leaf.grad.cpu().numpy()
 
     def _adam(self, pose: torch.Tensor, lr: float) -> torch.optim.Adam:
@@ -380,14 +421,14 @@ class Localizer:
             iteration_num: int, lr: float = 1e-4) -> list[np.ndarray]:
         """src/localizer.cpp:142-167: Adam on the 3x4 pose through the
         renderer; reported poses keep the original rotation rows."""
-        ij, gt = self._frame(image)
+        frame = self._frame(image)
         prev_rot = np.asarray(initial_pose)[:3, :3].copy()
         pose = torch.tensor(np.asarray(initial_pose, dtype=np.float32),
                             device=self.device, requires_grad=True)
         opt = self._adam(pose, lr)
         results = []
         for _ in range(iteration_num):
-            self._diff_step_auto(pose, opt, ij, gt)
+            self._diff_step_auto(pose, opt, frame)
             out = pose.detach().cpu().numpy().copy()
             out[:3, :3] = prev_rot
             results.append(out)
@@ -415,7 +456,7 @@ class Localizer:
             pose = calc_average_pose(parts)
         search_pose = pose.copy()
 
-        ij, gt = self._frame(image)
+        frame = self._frame(image)
         lr = float(diff_lr)
         cur = torch.tensor(pose, device=self.device, requires_grad=True)
         opt = self._adam(cur, lr)
@@ -426,7 +467,7 @@ class Localizer:
         it = 0
         while it < diff_iters and lr >= min_lr:
             before = cur.detach().clone()
-            loss = self._diff_step_auto(cur, opt, ij, gt)
+            loss = self._diff_step_auto(cur, opt, frame)
             history.append(loss)
             if auto_lr and loss > best_loss * (1.0 + 1e-6):
                 # the previous step hurt: revert to the best pose, halve

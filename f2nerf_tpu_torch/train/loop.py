@@ -24,6 +24,14 @@ Batches come from the native loader (``data/native_loader.py``) when its
 library loads, else from ``Dataset.sample_batch`` on a numpy Generator
 seeded with ``cfg.train.seed``, exactly as the JAX trainer takes them, so
 one seed gives one batch stream in both packages.
+
+Across devices (``mesh``, one process per card; JAX ``use_mesh``): every
+rank draws the same global batch from the same source and trains on its
+shard (``parallel.mesh.shard_batch``); params, Adam state, constants and
+grid are broadcast from rank 0 at start and after a resume. Every host
+decision (the report, NaN recovery, the profile window) reads global
+values, so the ranks never diverge. Only rank 0 writes the log, the run
+files, the vis PNGs and the checkpoints; the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.data.dataset import Dataset
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.models.warp import warp_consts
+from f2nerf_tpu_torch.parallel.mesh import (DataMesh, barrier, is_writer,
+                                            replicate, shard_batch)
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
 from f2nerf_tpu_torch.train.step import StepNoise, draw_noise, make_train_step
@@ -89,7 +99,9 @@ class Trainer:
     -> StepNoise`` gives each step's draws (default:
     ``train.step.draw_noise``). ``profile_dir``: trace steps
     ``profile_steps[0]`` to ``profile_steps[1]`` with ``torch.profiler``
-    into a Chrome trace there.
+    into a Chrome trace there (one a rank, with a mesh of several).
+    ``mesh``: train across its ranks (module docstring); ``device``
+    defaults to the mesh's.
     """
 
     def __init__(self, cfg: Config, dataset: Dataset,
@@ -99,11 +111,14 @@ class Trainer:
                  consts: Mapping[str, Any] | None = None,
                  noise_fn: Callable[[int, int], StepNoise] | None = None,
                  profile_dir: str | pathlib.Path | None = None,
-                 profile_steps: tuple[int, int] = (10, 15)):
+                 profile_steps: tuple[int, int] = (10, 15),
+                 mesh: DataMesh | None = None):
         cfg = resolve_sample_near(cfg, dataset)
         self.cfg = cfg
         self.dataset = dataset
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if device is not None or mesh is None else mesh.device)
         self.result_dir = (pathlib.Path(result_dir)
                            if result_dir is not None else None)
         self.profile_dir = (pathlib.Path(profile_dir) if profile_dir
@@ -134,11 +149,12 @@ class Trainer:
             self.consts = {"field": field_consts} if field_consts else {}
         self.optimizer = make_optimizer(self.params, cfg.train)
         self.occ_grid = occupancy.init_grid(cfg.model, self.device)
+        replicate(mesh, [self.params, self.consts, self.occ_grid])
         self.step = 0
         self.poses = torch.as_tensor(dataset.poses, device=self.device)
         self.intrinsics = torch.as_tensor(dataset.intrinsics,
                                           device=self.device)
-        self._step_fn = make_train_step(cfg, self.optimizer)
+        self._step_fn = make_train_step(cfg, self.optimizer, mesh=mesh)
         self._noise_fn = noise_fn or (lambda step, n: draw_noise(
             cfg, step, n, self.device))
         self._rng = np.random.default_rng(cfg.train.seed)
@@ -157,13 +173,13 @@ class Trainer:
         self.psnr_smooth = -1.0
         self._nan_budget = cfg.train.nan_recovery
 
-        if self.result_dir is not None:
+        self._log_file = None
+        if self.result_dir is not None and is_writer(mesh):
             self.result_dir.mkdir(parents=True, exist_ok=True)
             cfg.save(self.result_dir / "train_config.yaml")
             dataset.save_inference_params(self.result_dir)
             self._log_file = open(self.result_dir / "train_log.txt", "a")
-        else:
-            self._log_file = None
+        barrier(mesh)
 
     @property
     def batch_source(self) -> str:
@@ -183,9 +199,11 @@ class Trainer:
     def save_checkpoint(self) -> None:
         if self.result_dir is None:
             return
-        ckpt_lib.save(self.result_dir / "checkpoints", self.step,
-                      self.params, self.optimizer, self.occ_grid,
-                      consts=self.consts)
+        if is_writer(self.mesh):
+            ckpt_lib.save(self.result_dir / "checkpoints", self.step,
+                          self.params, self.optimizer, self.occ_grid,
+                          consts=self.consts)
+        barrier(self.mesh)
 
     def try_resume(self) -> bool:
         """Adopt the newest checkpoint of the run directory, if any."""
@@ -215,6 +233,8 @@ class Trainer:
         if state["consts"]:
             self.consts = unflatten({k: v.to(self.device)
                                      for k, v in state["consts"].items()})
+        replicate(self.mesh, [self.params, self.optimizer.adam.state,
+                              self.occ_grid, self.consts])
 
     def _recover(self) -> bool:
         """After a NaN loss: restore the newest checkpoint whose params,
@@ -261,14 +281,15 @@ class Trainer:
                 self._nan_budget -= 1
 
     def next_batch(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The next (cam_idx, ij, gt) batch, on the device."""
+        """The next (cam_idx, ij, gt) batch, on the device: this rank's
+        shard of it with a mesh."""
         if self._native is not None:
             cam_idx, ij, gt = self._native.next()
         else:
             cam_idx, ij, gt = self.dataset.sample_batch(
                 self._rng, self.cfg.train.rays_per_step)
         return tuple(torch.as_tensor(x, device=self.device)
-                     for x in (cam_idx, ij, gt))
+                     for x in shard_batch(self.mesh, cam_idx, ij, gt))
 
     def _run_inner(self, end: int) -> dict:
         cfg = self.cfg
@@ -282,7 +303,7 @@ class Trainer:
             self.occ_grid, metrics = self._step_fn(
                 self.params, self.occ_grid, self.poses, self.intrinsics,
                 self.step, cam_idx, ij, gt,
-                noise=self._noise_fn(self.step, cam_idx.shape[0]),
+                noise=self._noise_fn(self.step, cfg.train.rays_per_step),
                 consts=self.consts)
             self.step += 1
             pending.append(metrics)
@@ -317,9 +338,11 @@ class Trainer:
             device_sync(self.params)
             self._profiler.__exit__(None, None, None)
             self.profile_dir.mkdir(parents=True, exist_ok=True)
+            rank = (f"_rank{self.mesh.rank}"
+                    if self.mesh is not None and self.mesh.size > 1 else "")
             self._profiler.export_chrome_trace(
                 str(self.profile_dir / f"train_steps_{self.profile_steps[0]}"
-                    f"_{self.profile_steps[1]}.json"))
+                    f"_{self.profile_steps[1]}{rank}.json"))
             self._profiler = None
 
     def _report(self, pending: list, t0: float) -> dict:
@@ -351,6 +374,8 @@ class Trainer:
                 "loss": last["loss"]}
 
     def _log(self, line: str) -> None:
+        if not is_writer(self.mesh):
+            return
         print(line, flush=True)
         if self._log_file is not None:
             self._log_file.write(line + "\n")
@@ -372,7 +397,9 @@ class Trainer:
         rgb, depth = renderer.render_image(
             self.params, self.poses[0], self.intrinsics[0], ds.height,
             ds.width, self.cfg.model, chunk=self.cfg.train.ray_batch_size,
-            occ_vals=self.occ_bits(), consts=self.consts)
+            occ_vals=self.occ_bits(), consts=self.consts, mesh=self.mesh)
+        if not is_writer(self.mesh):
+            return
         depth3 = np.repeat(depth.cpu().numpy()[..., None], 3, axis=-1)
         concat = np.concatenate([ds.images[0], rgb.cpu().numpy(), depth3],
                                 axis=1)

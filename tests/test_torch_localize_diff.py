@@ -96,7 +96,7 @@ def test_localize_backtracking_loop(dense_scene, monkeypatch):
                                   pose)
         return optax.apply_updates(pose, upd), state, jnp.float32(losses[k])
 
-    def step_t(pose, opt, ij, gt):
+    def step_t(pose, opt, frame):
         k = calls["t"]
         calls["t"] += 1
         pose.grad = torch.tensor(grads[k], dtype=torch.float32)

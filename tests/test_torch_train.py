@@ -56,15 +56,40 @@ N_STEPS = 3
 def jax_noise(jcfg, step, n_rays):
     """The JAX step's draws, rebuilt from its key schedule
     (step.py:230-233, renderer.py:112-113, occupancy.py:161, 240, 270,
-    319, step.py:140-146), as a port StepNoise."""
+    319, step.py:140-146), as a port StepNoise. With ``grad_blocks`` V
+    the per-ray draws and the global-sparsity points are block b's, from
+    ``fold_in(key, b)`` (step.py:188-190), concatenated (points stacked)
+    in block order."""
     m = jcfg.model
     key = jax.random.fold_in(jax.random.key(jcfg.train.seed),
                              jnp.uint32(step))
-    refresh = march = rank = within = explore = gs_points = None
+    refresh = None
     if m.sampler_mode == "occ":
         k_occ, key = jax.random.split(key)
         n_cells = m.occ_grid_res ** 3 // m.occ_refresh_phases
         refresh = jax.random.uniform(k_occ, (n_cells, 3))
+    n_blocks = jcfg.train.grad_blocks
+    if n_blocks > 0:
+        blocks = [_ray_draws(jcfg, jax.random.fold_in(key, jnp.uint32(b)),
+                             n_rays // n_blocks) for b in range(n_blocks)]
+        draws = {name: None if blocks[0][name] is None else
+                 (np.stack if name == "gs_points" else np.concatenate)(
+                     [b[name] for b in blocks])
+                 for name in blocks[0]}
+    else:
+        draws = _ray_draws(jcfg, key, n_rays)
+
+    def t(x):
+        return None if x is None else torch.tensor(np.asarray(x))
+
+    return tstep.StepNoise(refresh=t(refresh),
+                           **{name: t(x) for name, x in draws.items()})
+
+
+def _ray_draws(jcfg, key, n_rays):
+    """The renderer's and the global-sparsity term's draws from ``key``."""
+    m = jcfg.model
+    march = rank = within = explore = gs_points = None
     key_noise, key_bg = jax.random.split(key)
     bg = jax.random.uniform(key_bg, (n_rays, 3))
     if m.sampler_mode == "occ":
@@ -85,13 +110,10 @@ def jax_noise(jcfg, step, n_rays):
             jax.random.fold_in(key, 0x675),
             (jcfg.train.global_sparsity_points, 3), minval=-dom_r,
             maxval=dom_r)
-
-    def t(x):
-        return None if x is None else torch.tensor(np.asarray(x))
-
-    return tstep.StepNoise(refresh=t(refresh), bg=t(bg), march=t(march),
-                           rank=t(rank), within=t(within),
-                           explore=t(explore), gs_points=t(gs_points))
+    return {name: None if x is None else np.asarray(x)
+            for name, x in dict(bg=bg, march=march, rank=rank, within=within,
+                                explore=explore,
+                                gs_points=gs_points).items()}
 
 
 def _record():
@@ -341,14 +363,6 @@ def test_optimizer_counts_its_own_updates(tiny_cfg):
                                / tcfg.train.learning_rate_warm_up_end_iter)
     # weight decay: the pool group has none, the rest 1e-6
     assert [g["weight_decay"] for g in opt.adam.param_groups] == [1e-6, 0.0]
-
-
-def test_grad_blocks_raises(tiny_cfg):
-    tcfg = TConfig.from_dict(dataclasses.asdict(dataclasses.replace(
-        tiny_cfg, train=dataclasses.replace(tiny_cfg.train, grad_blocks=2))))
-    p = {"w": torch.ones(2)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        tstep.make_train_step(tcfg, topt.make_optimizer(p, tcfg.train))
 
 
 def test_draw_noise_is_per_step(occ_cfg):
