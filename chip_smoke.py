@@ -135,6 +135,30 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    grad_blocks,mode0,mode1}`` (summed over the ranks) and
    ``distributed/run/{train_a,mode0}``.
 
+14. The tools (``tools_phase``; ``f2nerf_tpu_torch/tools``), with jax,
+   PIL and yaml unimportable: ``make_synthetic_dataset`` (the textured
+   scene, 32 views of 128x128, every 8th held out), ``quality_run`` on
+   the same split at ``Config.quality``'s width for ``TOOLS_STEPS`` steps
+   (its 20,000 cut to fit the time limit), ``eval_holdout`` on the
+   held-out directory, ``eval`` on its [gt | pred] strips (random LPIPS
+   weights), ``localize_validation`` on the held-out views and
+   ``bench_localize``: held-out PSNR / SSIM from both renderers (they must
+   agree), LPIPS, the position error before and after recovery, the
+   localizer's ms, launches per sub-path ``tools/<name>``.
+
+Run dedup (``encode_dedup``, on by default) runs in phases 3-5 and 10;
+after phases 3-5, and inside phase 10, it is also switched off and on in
+turns (``steps_in_turns``, ``requests_dedup``, ``dense_dedup``): train
+steps at phase 4's point, mode-0 and mode-1 requests, and dense two-pass
+steps with ``dense_two_pass_dedup`` on the RS/8 and the full field, each
+bitwise equal on and off (grads, params, metrics, replies, renders, the
+pose gradient); step and request ms, device ms (the ``compute_runs``
+scope), launches per sub-path ``dedup/{training,mode0,mode1}/{on,off}``
+and ``dense/dedup/{RS/8,RS}/{on,off}``, and the largest run count of each
+deduped level against its budget on a train step, a full frame, a
+particle render (certified: must hold) and the compacted survivor
+streams at RS/2, RS/4, RS/8 (JAX's run-time check: reported).
+
 A phase that fails is reported and the others still run; the script
 then exits non-zero. Otherwise one JSON line per the kernels (with the
 launches by path: the warp paths under ``warp/``, the node's under
@@ -153,6 +177,7 @@ import dataclasses
 import importlib
 import importlib.abc
 import importlib.util
+import io
 import json
 import os
 import pathlib
@@ -189,7 +214,8 @@ from f2nerf_tpu_torch.train.loop import Trainer
 from f2nerf_tpu_torch.train.optim import make_optimizer
 from f2nerf_tpu_torch.train.step import (StepNoise, draw_noise,
                                          make_train_step)
-from f2nerf_tpu_torch.utils.image_io import read_image, resize_image
+from f2nerf_tpu_torch.utils.image_io import (read_image, resize_image,
+                                             write_image)
 from f2nerf_tpu_torch.utils.metrics import psnr, ssim
 
 
@@ -1536,6 +1562,11 @@ def profile_call(fn, what: str) -> dict:
             "host_copy_ms": sum(ms for k, ms in kernels.items()
                                 if k.startswith(("Memcpy DtoH",
                                                  "Memcpy HtoD")))}
+    runs = scope_ms(prof, "compute_runs")
+    if runs["calls"]:
+        log(f"  run dedup (compute_runs, {runs['calls']} calls): "
+            f"{runs['device_ms']:.3f} ms of device kernels")
+        res["compute_runs"] = runs
     warp = scope_ms(prof, "warp_points")
     if warp["calls"]:
         log(f"  the warp (warp_points, {warp['calls']} calls): "
@@ -2092,10 +2123,13 @@ def dense_phase(seed: int, dev: torch.device, kernels: list) -> dict:
         by_name["trilinear_bwd"]["sets"][key] = bwd_set(
             f"dense {name} survivors", g, page_idx, lf, meta.total_pages,
             flush)
+    dedup = dense_dedup(fields, b_list, noise, dev)
+    subpaths.update(dedup.pop("subpaths"))
     return {"subpaths": subpaths,
             "fields": {k: {kk: v for kk, v in f.items() if kk != "params"}
                        for k, f in fields.items()},
-            "checks": checks, "bitwise_unequal": unequal, "timing": timing}
+            "checks": checks, "bitwise_unequal": unequal, "timing": timing,
+            "dedup": dedup}
 
 
 # -- phase 11: the xor hash ---------------------------------------------------
@@ -2632,6 +2666,369 @@ def distributed_phase(seed: int, dev: torch.device,
             "serve_err": serve_err, "run": run}
 
 
+# -- run dedup on and off (phases 3-5 and 10) ----------------------------------
+
+DEDUP_WINDOW = 6           # train steps a window; windows off, on, on, off
+DEDUP_REQUESTS = 2         # requests a window
+
+
+def no_dedup(cfg: Config) -> Config:
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, encode_dedup=False, dense_two_pass_dedup=False))
+
+
+def run_counts(fn) -> tuple[dict, object]:
+    """``fn()`` with the run counts recorded (``hash_paged.recording_runs``):
+    ({"<kind> L<level>": [largest run count, budget]}, what fn returned)."""
+    with hash_paged.recording_runs() as rec:
+        out = fn()
+    counts = {}
+    for e in rec:
+        key = f"{e['kind']} L{e['level']}"
+        runs = int(e["runs"])
+        counts[key] = [max(runs, counts.get(key, [0])[0]), e["budget"]]
+    return counts, out
+
+
+def check_runs(path: str, counts: dict) -> None:
+    """The certified budgets (along rays) hold on ``path``."""
+    log(f"run counts on the {path} path (largest, budget): {counts}")
+    over = {k: v for k, v in counts.items()
+            if k.startswith("rays") and v[0] > v[1]}
+    if over or not counts:
+        raise RuntimeError(f"{path}: run counts over their budgets {over} "
+                           f"(or none recorded)")
+
+
+def _tree_equal(a: dict, b: dict) -> list[str]:
+    """Names of the leaves of two flat dicts that differ bitwise."""
+    return sorted(k for k in a if not torch.equal(a[k], b[k]))
+
+
+def steps_in_turns(make, batches: list, dev: torch.device, path: str,
+                   used: tuple = ("trilinear_fwd", "trilinear_bwd")) -> dict:
+    """Train steps with run dedup on and off: ``make(on)`` gives (params,
+    optimizer, step function, grid) from the same seed; ``DEDUP_WINDOW``
+    steps a window in turns off, on, on, off on the same batches and step
+    numbers. The grads of a window's last step, the metrics of every step
+    and the params and grid at the end must be bitwise equal. Step ms on
+    the host clock, launches per mode, one profiled step of each and the
+    run counts of one step with dedup on."""
+    poses, intr = cameras(dev)
+    runs = {}
+    for name in ("on", "off"):
+        params, opt, step, grid = make(name == "on")
+        runs[name] = {"params": params, "opt": opt, "step": step,
+                      "grid": grid, "k": 0, "ms": [], "metrics": [],
+                      "grads": [], "launches": dict.fromkeys(ALL_KERNELS, 0)}
+
+    def one_step(r, k):
+        r["grid"], m = r["step"](r["params"], r["grid"], poses, intr,
+                                 STEP0 + k, *batches[k % len(batches)])
+        return m
+
+    for name in ("off", "on", "on", "off"):
+        r = runs[name]
+        torch.cuda.synchronize()
+        zero_launches()
+        for _ in range(DEDUP_WINDOW):
+            t0 = time.perf_counter()
+            m = one_step(r, r["k"])
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["metrics"].append(torch.stack(tuple(m)))
+            r["k"] += 1
+        r["grads"].append({k: p.grad.clone()
+                           for k, p in r["opt"].named.items()})
+        for k, v in read_launches().items():
+            r["launches"][k] += v
+    on, off = runs["on"], runs["off"]
+    unequal = {
+        "grads": sorted({n for a, b in zip(on["grads"], off["grads"])
+                         for n in _tree_equal(a, b)}),
+        "params": _tree_equal({k: p.detach() for k, p in
+                               on["opt"].named.items()},
+                              {k: p.detach() for k, p in
+                               off["opt"].named.items()}),
+        "metrics": [k for k, (a, b) in enumerate(zip(on["metrics"],
+                                                     off["metrics"]))
+                    if not torch.equal(a, b)]}
+    if on["grid"] is not None and not torch.equal(on["grid"], off["grid"]):
+        unequal["grid"] = ["occ_grid"]
+    if any(unequal.values()):
+        raise RuntimeError(f"{path}: dedup on and off differ: {unequal}")
+    out = {}
+    for name, r in runs.items():
+        check_launches(f"{path} dedup {name}", r["launches"], used)
+        k = r["k"]
+        out[name] = {"step_ms": r["ms"], "launches": r["launches"],
+                     "profile": profile_call(lambda: one_step(r, k),
+                                             f"{path} step, dedup {name}")}
+    out["runs"], _ = run_counts(lambda: one_step(on, on["k"] + 1))
+    check_runs(f"{path} step", out["runs"])
+    log(f"{path}: step ms dedup off {[round(t, 2) for t in off['ms']]} vs "
+        f"on {[round(t, 2) for t in on['ms']]}; device ms "
+        f"{out['off']['profile']['device_ms']:.3f} vs "
+        f"{out['on']['profile']['device_ms']:.3f}; bitwise equal")
+    return out
+
+
+def training_dedup(seed: int, dev: torch.device) -> dict:
+    """Phase 4's point with run dedup on and off (``steps_in_turns``)."""
+    cfg = train_cfg(TRAIN_RAYS)
+    rng = np.random.default_rng(seed + 20)
+    batches = [batch(rng, TRAIN_RAYS, dev) for _ in range(2 * DEDUP_WINDOW)]
+
+    def make(on):
+        c = cfg if on else no_dedup(cfg)
+        return (*make_trainer(c, seed, dev), seeded_grid(c, dev))
+
+    out = steps_in_turns(make, batches, dev, "training")
+    return {"subpaths": {f"training/{m}": {"launches": out[m]["launches"]}
+                         for m in ("on", "off")}, **out}
+
+
+def requests_dedup(cfg: Config, seed: int, dev: torch.device, mode: int,
+                   params: dict | None = None) -> dict:
+    """Requests of ``mode`` through two services over ``params``, run
+    dedup on and off, ``DEDUP_REQUESTS`` a window in turns off, on, on,
+    off: the replies, a frame's render and (mode 1) the pose gradient
+    bitwise equal; request ms, launches, one profiled request of each,
+    and the run counts of a full-frame render and (mode 0) of a particle
+    render."""
+    if params is None:
+        params = renderer.init(torch.Generator(device=dev).manual_seed(seed),
+                               cfg.model, 4, dev)
+    locs = {"on": make_localizer(cfg, seed, dev, params=params),
+            "off": make_localizer(no_dedup(cfg), seed, dev, params=params)}
+    svcs = {k: LocalizerService(loc) for k, loc in locs.items()}
+    pose, target = target_frame(locs["on"])
+    for svc in svcs.values():
+        if not svc.handle({"cmd": "init_pose", "pose": locs["on"].camera2world(
+                pose).tolist()})["ok"]:
+            raise RuntimeError("init_pose failed")
+    req = {"cmd": "localize", "image": target.tolist(), "mode": mode,
+           "particle_num": PARTICLES}
+    used = ("trilinear_fwd",) if mode == 0 else ("trilinear_fwd",
+                                                 "trilinear_bwd_frac")
+    res = {k: {"ms": [], "replies": [],
+               "launches": dict.fromkeys(ALL_KERNELS, 0)} for k in svcs}
+    for name in ("off", "on", "on", "off"):
+        r = res[name]
+        torch.cuda.synchronize()
+        zero_launches()
+        for _ in range(DEDUP_REQUESTS):
+            t0 = time.perf_counter()
+            reply = svcs[name].handle(req)
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            check_reply(reply, f"mode-{mode} request, dedup {name}")
+            r["replies"].append(reply)
+        for k, v in read_launches().items():
+            r["launches"][k] += v
+    path = f"mode{mode}"
+    if res["on"]["replies"] != res["off"]["replies"]:
+        raise RuntimeError(f"{path}: replies differ with dedup on and off")
+    frames = {k: loc.render_image(pose) for k, loc in locs.items()}
+    if not torch.equal(frames["on"], frames["off"]):
+        raise RuntimeError(f"{path}: frame renders differ, dedup on and off")
+    if mode == 1:
+        grads = {k: loc.pose_gradient(pose, target) for k, loc in
+                 locs.items()}
+        if not (grads["on"][0] == grads["off"][0]
+                and np.array_equal(grads["on"][1], grads["off"][1])):
+            raise RuntimeError("the pose gradient differs, dedup on and off")
+    out = {}
+    for name, r in res.items():
+        check_launches(f"{path} dedup {name}", r["launches"], used)
+        out[name] = {"request_ms": r["ms"], "launches": r["launches"],
+                     "profile": profile_call(lambda: svcs[name].handle(req),
+                                             f"{path} request, dedup {name}")}
+    out["runs"] = {"frame": run_counts(
+        lambda: locs["on"].render_image(pose))[0]}
+    check_runs(f"{path} frame", out["runs"]["frame"])
+    if mode == 0:
+        out["runs"]["particles"] = run_counts(
+            lambda: locs["on"].evaluate_poses(
+                np.stack([pose] * PARTICLES), target))[0]
+        check_runs(f"{path} particles", out["runs"]["particles"])
+    log(f"{path}: request ms dedup off {[round(t, 1) for t in res['off']['ms']]}"
+        f" vs on {[round(t, 1) for t in res['on']['ms']]}; device ms "
+        f"{out['off']['profile']['device_ms']:.3f} vs "
+        f"{out['on']['profile']['device_ms']:.3f}; replies bitwise equal")
+    out["subpaths"] = {f"{path}/{m}": {"launches": out[m]["launches"]}
+                       for m in ("on", "off")}
+    return out
+
+
+def dense_dedup(fields: dict, b_list: list, noise, dev: torch.device) -> dict:
+    """Phase 10's fields with run dedup: the compacted survivor stream's
+    run counts against ``compacted_budgets`` in each prefix bucket (JAX's
+    run-time check, ``dense_two_pass_dedup``: where it fails JAX encodes
+    flat, so these are reported, not gated), and two-pass steps with
+    ``encode_dedup`` and ``dense_two_pass_dedup`` on and off in turns on
+    the RS/8 field and the full field (``steps_in_turns``)."""
+    cfg = dense_cfg(True)
+    on_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dense_two_pass_dedup=True))
+    out = {"compacted": {}}
+    for name, f in fields.items():
+        if name == "RS":
+            continue
+        with torch.no_grad():
+            counts, _ = run_counts(lambda: dense_render(
+                f["params"], on_cfg, b_list[0], noise))
+        ok = all(v[0] <= v[1] for v in counts.values())
+        out["compacted"][name] = {"runs": counts, "ok": ok}
+        log(f"dense {name}: compacted stream runs (largest, budget) "
+            f"{counts}: the check {'holds' if ok else 'fails (flat)'}")
+        if not counts:
+            raise RuntimeError(f"dense {name}: no compacted run recorded")
+    for name in ("RS/8", "RS"):
+        def make(on, p=fields[name]["params"]):
+            c = on_cfg if on else no_dedup(cfg)
+            q = _clone(p)
+            opt = make_optimizer(q, c.train)
+            return q, opt, make_train_step(c, opt), None
+
+        out[name] = steps_in_turns(make, b_list, dev, f"dense {name}")
+    out["subpaths"] = {f"dedup/{name}/{m}": {"launches": out[name][m][
+        "launches"]} for name in ("RS/8", "RS") for m in ("on", "off")}
+    return out
+
+
+# -- phase 14: the tools ---------------------------------------------------
+
+TOOLS_STEPS = 2000         # quality_run's steps (Config.quality's 20,000 cut)
+TOOLS_FLAGS = ["--scene", "textured", "--n_images", "32", "--hw", "128"]
+TOOLS_HOLDOUT = 8
+
+
+def _tool(fn, *argv: str) -> tuple[object, str]:
+    """A tool's ``main`` on ``argv`` with its standard output captured
+    (and logged): (what main returned, the text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(list(argv))
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return rc, text
+
+
+def _tsv(path: pathlib.Path) -> list[dict]:
+    head, *rows = [line.split("\t") for line in
+                   path.read_text().splitlines()]
+    return [dict(zip(head, r)) for r in rows]
+
+
+def _mean(rows: list[dict], col: str) -> float:
+    return float(np.mean([float(r[col]) for r in rows]))
+
+
+def tools_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
+    """Phase 14: the tools of ``f2nerf_tpu_torch/tools`` as a user runs
+    them, with jax, PIL and yaml unimportable: ``make_synthetic_dataset``
+    (the textured scene, 32 views of 128x128, every 8th held out into
+    ``ds_holdout``), ``quality_run`` on the same split at
+    ``Config.quality``'s width for ``TOOLS_STEPS`` steps, ``eval_holdout``
+    on the held-out directory, ``eval`` on its [gt | pred] strips with
+    random LPIPS weights, ``localize_validation`` on the held-out views
+    and ``bench_localize``; launches per sub-path ``tools/<name>``."""
+    from f2nerf_tpu_torch.tools import (bench_localize, eval_holdout,
+                                        localize_validation,
+                                        make_synthetic_dataset, quality_run)
+    from f2nerf_tpu_torch.tools import eval as eval_tool
+    from f2nerf_tpu_torch.utils import lpips
+
+    root.mkdir(parents=True, exist_ok=True)
+    ds_dir, run = root / "ds", root / "run"
+    holdout = ["--holdout", str(TOOLS_HOLDOUT)]
+    dev_flag = ["--device", str(dev)]
+    sub = {}
+    with unimportable("jax", "PIL", "yaml"):
+        _tool(make_synthetic_dataset.main, str(ds_dir), *TOOLS_FLAGS,
+              *holdout)
+        sub["tools/quality_run"], (rc, _) = _subpath(
+            "tools/quality_run", ("trilinear_fwd", "trilinear_bwd"),
+            lambda: _tool(quality_run.main, str(run), *TOOLS_FLAGS,
+                          *holdout, "--steps", str(TOOLS_STEPS),
+                          "--budget_s", "1200", *dev_flag))
+        if rc != 0:
+            raise RuntimeError(f"quality_run returned {rc}")
+        summary = _tsv(run / "summary.tsv")
+        sub["tools/eval_holdout"], (rc, _) = _subpath(
+            "tools/eval_holdout", ("trilinear_fwd",),
+            lambda: _tool(eval_holdout.main, str(run),
+                          str(root / "ds_holdout"), "--save_images",
+                          *dev_flag))
+        held = _tsv(run / "holdout_summary.tsv")
+        for d in ("gt", "pred"):
+            (root / d).mkdir()
+        for k in range(len(held)):
+            strip = read_image(run / f"holdout_{k:02d}.png")
+            w = strip.shape[1] // 2
+            write_image(root / "gt" / f"{k:02d}.png", strip[:, :w])
+            write_image(root / "pred" / f"{k:02d}.png", strip[:, w:])
+        lpips.make_random_weights(root / "lpips.pt", seed=seed)
+        sub["tools/eval"], _ = _subpath(
+            "tools/eval", (), lambda: _tool(
+                eval_tool.main, "--gt_dir", str(root / "gt"), "--pred_dir",
+                str(root / "pred"), "--lpips_weights",
+                str(root / "lpips.pt"), *dev_flag))
+        info = json.loads((root / "pred" / "info.json").read_text())
+        sub["tools/localize_validation"], (rc, text) = _subpath(
+            "tools/localize_validation",
+            ("trilinear_fwd", "trilinear_bwd_frac"),
+            lambda: _tool(localize_validation.main, str(run), *TOOLS_FLAGS,
+                          "--holdout_every", str(TOOLS_HOLDOUT), *dev_flag))
+        line = next(x for x in text.splitlines()
+                    if x.startswith("mean position error"))
+        errs = [float(x.split()[-1].rstrip(","))
+                for x in line.split(":", 1)[1].split("(")[0].split(",")]
+        sub["tools/bench_localize"], (bench_ms, _) = _subpath(
+            "tools/bench_localize", ("trilinear_fwd", "trilinear_bwd_frac"),
+            lambda: _tool(bench_localize.main, *dev_flag))
+    split = {tag: [r for r in summary if r["split"] == tag]
+             for tag in ("train", "holdout")}
+    res = {"subpaths": sub, "steps": TOOLS_STEPS,
+           "quality_run_s": sub["tools/quality_run"]["wall_s"],
+           "train_psnr": _mean(split["train"], "psnr"),
+           "train_ssim": _mean(split["train"], "ssim"),
+           "holdout_psnr": _mean(split["holdout"], "psnr"),
+           "holdout_ssim": _mean(split["holdout"], "ssim"),
+           "eval_holdout_psnr": _mean(held, "psnr"),
+           "eval_holdout_ssim": _mean(held, "ssim"),
+           "eval_holdout_ms": [1e3 * float(r["time_s"]) for r in held],
+           "eval": info, "position_error": dict(zip(
+               ("before", "after_search", "after_differential"), errs)),
+           "localize_rc": rc, "bench_localize_ms": bench_ms}
+    log(f"tools: {TOOLS_STEPS} steps in {res['quality_run_s']:.1f} s; "
+        f"held-out PSNR {res['holdout_psnr']:.3f} dB / SSIM "
+        f"{res['holdout_ssim']:.4f} (quality_run), "
+        f"{res['eval_holdout_psnr']:.3f} / {res['eval_holdout_ssim']:.4f} "
+        f"(eval_holdout), LPIPS (random weights) {info['lpips_vgg']:.4f}; "
+        f"position error {errs}; bench_localize {bench_ms}")
+    n_views = int(TOOLS_FLAGS[TOOLS_FLAGS.index("--n_images") + 1])
+    n_held = len(range(0, n_views, TOOLS_HOLDOUT))
+    ok = (len(summary) == n_views and len(split["holdout"]) == n_held
+          and len(held) == n_held and len(errs) == 3
+          and np.isfinite(errs).all() and rc in (0, 1)
+          and all(np.isfinite(float(r[c])) for r in summary
+                  for c in ("psnr", "ssim", "score"))
+          and np.isfinite(info["lpips_vgg"]) and info["lpips_vgg"] > 0
+          and all(v > 0 for v in bench_ms.values())
+          # the held-out views, rendered from the training frame and from
+          # the holdout directory's world poses, agree
+          and abs(res["eval_holdout_psnr"] - res["holdout_psnr"]) < 0.5
+          # and eval scores eval_holdout's 8-bit strips alike
+          and abs(info["psnr"] - res["eval_holdout_psnr"]) < 0.1)
+    if not ok:
+        raise RuntimeError(f"the tools' outputs fail their checks: {res}")
+    return res
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2693,10 +3090,6 @@ def main() -> int:
                                train_cfg(TRAIN_RAYS), args.seed, dev),
              "differential": phase("differential", differential_phase, cfg,
                                    args.seed, dev)}
-    wcfg = warp_cfg(train_cfg(TRAIN_RAYS))
-    paths["warp/training"] = phase(
-        "warp training", training_phase, wcfg, args.seed, dev,
-        consts=bench_warp_consts(wcfg, dev), path="warp/training")
     runs = {}
 
     def add_paths(prefix: str, res: dict | None) -> None:
@@ -2704,6 +3097,17 @@ def main() -> int:
             for name, sub in res.pop("subpaths").items():
                 paths[f"{prefix}{name}"] = sub
 
+    for name, fn, a in (
+            ("training", training_dedup, (args.seed, dev)),
+            ("mode0", requests_dedup, (cfg, args.seed, dev, 0)),
+            ("mode1", requests_dedup, (cfg, args.seed, dev, 1,
+                                       o1_params(cfg, args.seed + 6, dev)))):
+        runs[f"dedup/{name}"] = phase(f"{name} dedup", fn, *a)
+        add_paths("dedup/", runs[f"dedup/{name}"])
+    wcfg = warp_cfg(train_cfg(TRAIN_RAYS))
+    paths["warp/training"] = phase(
+        "warp training", training_phase, wcfg, args.seed, dev,
+        consts=bench_warp_consts(wcfg, dev), path="warp/training")
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
         for prefix, warp in (("", False), ("warp/", True)):
@@ -2720,6 +3124,9 @@ def main() -> int:
         runs["distributed"] = phase("distributed", distributed_phase,
                                     args.seed, dev, work / "distributed")
         add_paths("distributed/", runs["distributed"])
+        runs["tools"] = phase("tools", tools_phase, args.seed, dev,
+                              work / "tools")
+        add_paths("", runs["tools"])
     runs["dense"] = phase("dense two-pass", dense_phase, args.seed, dev,
                           kernels)
     add_paths("dense/", runs["dense"])

@@ -31,7 +31,7 @@ class ModelConfig:
     hash_mode: str = "paged"        # 'paged' | 'xor' (the reference's hash)
     init_seed: int = 2022           # numpy-side init (page constants)
     encode_chunk: int = 20480       # points per chunk of the plain encode
-    encode_dedup: bool = True       # run dedup (exact; the port encodes flat)
+    encode_dedup: bool = True       # run dedup along rays (hash_field.ray_budgets)
     dedup_max_frac: float = 0.75
     res_base_pow2: float = 3.0      # per-level res = exp2(3 + 7*l/(L-1))
     res_fine_pow2: float = 10.0
@@ -54,7 +54,7 @@ class ModelConfig:
     sampler_mode: str = "occ"       # 'occ' | 'dense'
     sample_near: float = 0.0
     dense_two_pass: bool = False     # TRAIN early-stop compaction (dense)
-    dense_two_pass_dedup: bool = False   # exact either way; encodes flat
+    dense_two_pass_dedup: bool = False   # check the survivor stream's runs
     occ_grid_res: int = 128
     occ_segments: int = 128
     occ_keep: int = 8

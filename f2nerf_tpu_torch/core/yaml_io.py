@@ -13,8 +13,11 @@ writes its run files itself. Two kinds of file exist:
 and double-quoted scalars, flow lists of scalars, comments, one
 ``%YAML`` directive and the ``---`` / ``...`` markers. It resolves plain
 scalars as ``yaml.safe_load`` does (YAML 1.1: ``true``/``yes``/``on`` are
-booleans, a float needs a dot, ``~``/``null`` are None). Anything else
-(anchors and aliases, tags, block sequences, nested or flow mappings,
+booleans, a float needs a dot, ``~``/``null`` are None). With
+``block_sequences=True`` it also reads block sequences of scalars under
+a key, as ``yaml.safe_dump`` writes the lists of a ROS
+``camera_info.yaml``; run files never hold them. Anything else (anchors
+and aliases, tags, block sequences otherwise, nested or flow mappings,
 multi-line strings, tabs) raises ``ValueError`` naming the line.
 
 :func:`dumps` writes the same text as ``yaml.safe_dump(data,
@@ -131,13 +134,14 @@ def _value(text: str, lineno: int, line: str) -> Any:
     return _scalar(text, lineno, line)
 
 
-def loads(text: str) -> Any:
+def loads(text: str, block_sequences: bool = False) -> Any:
     """Parse ``text`` (see the module docstring for the subset)."""
     root: dict[str, Any] = {}
     # (indent, mapping) from the outermost in; a key without a value opens
     # a mapping whose indent is set by its first child line
     stack: list[tuple[int, dict]] = [(0, root)]
     pending: tuple[int, dict, str] | None = None
+    seq: tuple[int, list] | None = None      # the open block sequence
     started = ended = False
     for lineno, raw in enumerate(text.splitlines(), 1):
         if "\t" in raw[:len(raw) - len(raw.lstrip())]:
@@ -157,7 +161,20 @@ def loads(text: str) -> Any:
             continue
         started = True
         indent = len(body) - len(body.lstrip(" "))
-        m = _KEY.match(body.strip())
+        item = body.strip()
+        if block_sequences and (item == "-" or item.startswith("- ")):
+            # a block sequence of scalars under the pending key, at its
+            # indent or deeper (``yaml.safe_dump`` writes lists so)
+            if pending is not None and indent >= pending[0]:
+                seq = (indent, [])
+                pending[1][pending[2]] = seq[1]
+                pending = None
+            elif seq is None or indent != seq[0]:
+                _fail(lineno, raw, "a block sequence item outside a key")
+            seq[1].append(_scalar(item[1:].strip(), lineno, raw))
+            continue
+        seq = None
+        m = _KEY.match(item)
         if m is None:
             _fail(lineno, raw, "expected 'key: value'")
         if pending is not None:
@@ -185,9 +202,9 @@ def loads(text: str) -> Any:
     return root
 
 
-def load(path) -> Any:
+def load(path, block_sequences: bool = False) -> Any:
     with open(path) as f:
-        return loads(f.read())
+        return loads(f.read(), block_sequences)
 
 
 def _format_scalar(v: Any, float_format: str | None) -> str:

@@ -171,6 +171,25 @@ def encode_coords(points: torch.Tensor, cfg: ModelConfig,
         n_cams=cfg.warp_n_cams), blend_k=cfg.warp_blend_k)
 
 
+def _cached_haloed(params: Params) -> torch.Tensor | None:
+    """``params["haloed"]``, refused when ``feat_pool`` would need a
+    gradient (see the module docstring)."""
+    haloed = params.get("haloed")
+    if (haloed is not None and params["feat_pool"].requires_grad
+            and torch.is_grad_enabled()):
+        raise ValueError(
+            "params carry a cached 'haloed' table while feat_pool requires "
+            "grad: the gradient would never reach feat_pool; drop "
+            "'haloed' from params to train")
+    return haloed
+
+
+def _head(params: Params, feat: torch.Tensor, level_weights,
+          cfg: ModelConfig) -> torch.Tensor:
+    feat = _apply_level_weights(feat, level_weights, cfg)
+    return feat @ params["mlp"]["w"] + params["mlp"]["b"]
+
+
 def query(params: Params, points: torch.Tensor, cfg: ModelConfig,
           pre_contracted: bool = False,
           level_weights=None, consts: Params | None = None) -> torch.Tensor:
@@ -184,21 +203,58 @@ def query(params: Params, points: torch.Tensor, cfg: ModelConfig,
             pool = pool.to(torch.bfloat16)
         feat = hash_encode(x, pool, consts["primes"], consts["biases"],
                            consts["scales"])
-        feat = _apply_level_weights(feat, level_weights, cfg)
-        return feat @ params["mlp"]["w"] + params["mlp"]["b"]
-    haloed = params.get("haloed")
-    if (haloed is not None and params["feat_pool"].requires_grad
-            and torch.is_grad_enabled()):
-        raise ValueError(
-            "params carry a cached 'haloed' table while feat_pool requires "
-            "grad: the gradient would never reach feat_pool; drop "
-            "'haloed' from params to train")
+        return _head(params, feat, level_weights, cfg)
     feat = hash_paged.paged_encode(
         x, params["feat_pool"], paged_meta(cfg),
         compute_dtype=compute_dtype(cfg), chunk=cfg.encode_chunk,
-        haloed=haloed)
-    feat = _apply_level_weights(feat, level_weights, cfg)
-    return feat @ params["mlp"]["w"] + params["mlp"]["b"]
+        haloed=_cached_haloed(params))
+    return _head(params, feat, level_weights, cfg)
+
+
+@functools.lru_cache(maxsize=32)
+def ray_budgets(cfg: ModelConfig) -> tuple[int, ...] | None:
+    """Per-level run budgets of the ray-coherent encode dedup, or None
+    where it does not apply (``encode_dedup`` off, xor mode, the
+    perspective warp, whose Lipschitz bound certifies no budget): JAX
+    ``hash_field.ray_budgets``. The march a ray spans: the occupancy
+    sampler's is ``n_samples * sample_l`` exactly, the dense sampler's
+    TRAIN jitter keeps it under 1.5 times that."""
+    if (not cfg.encode_dedup or cfg.hash_mode != "paged"
+            or cfg.warp_mode == "perspective"):
+        return None
+    if cfg.sampler_mode == "occ":
+        s = cfg.occ_keep * cfg.occ_samples_per_segment
+        march = cfg.n_samples * cfg.sample_l
+        occ = (cfg.occ_keep, cfg.occ_samples_per_segment,
+               cfg.occ_segments)
+    else:
+        s = cfg.n_samples
+        march = 1.5 * s * cfg.sample_l
+        occ = None
+    budgets = hash_paged.dedup_budgets(paged_meta(cfg), s, march,
+                                       cfg.dedup_max_frac, occ=occ)
+    return budgets if any(budgets) else None
+
+
+@functools.lru_cache(maxsize=32)
+def compacted_budgets(cfg: ModelConfig, s2: int) -> tuple[int, ...] | None:
+    """Heuristic run budgets for pseudo-rows of ``s2`` consecutive
+    samples of the dense two-pass's compacted survivor stream (JAX
+    ``hash_field.compacted_budgets``): twice the certified per-ray budget
+    plus 16, rounded up to 8, kept while at most ``dedup_max_frac * s2``.
+    Not certified: a pseudo-row spans several rays' prefixes, so
+    :func:`query_compacted` checks the run counts at run time."""
+    base = ray_budgets(cfg)
+    if base is None or cfg.sampler_mode != "dense":
+        return None
+    out = []
+    for b in base:
+        if not b:
+            out.append(0)
+            continue
+        b2 = ((2 * b + 16 + 7) // 8) * 8
+        out.append(b2 if b2 <= cfg.dedup_max_frac * s2 else 0)
+    return tuple(out) if any(out) else None
 
 
 def query_rays(params: Params, points: torch.Tensor, cfg: ModelConfig,
@@ -206,24 +262,71 @@ def query_rays(params: Params, points: torch.Tensor, cfg: ModelConfig,
                ) -> torch.Tensor:
     """Ray-structured query: [R, S, 3] -> [R, S, hash_feat_dim].
 
-    The JAX package deduplicates coarse-level page fetches along each ray
-    (``paged_encode_rays``); that dedup is bitwise equal to the flat
-    encode by construction and exists to save TPU row fetches, so the
-    port encodes flat.
+    Where :func:`ray_budgets` gives budgets (``encode_dedup``, paged,
+    contraction) the encode is ``hash_paged.paged_encode_rays``, as in
+    the JAX package: each deduped level reads its run's page, which is
+    the sample's own wherever no run id clamps (the budgets are certified
+    bounds), so the features and both gradients are the flat encode's
+    bitwise. Otherwise the flat :func:`query`.
     """
     r, s = points.shape[0], points.shape[1]
-    return query(params, points.reshape(r * s, 3), cfg,
-                 level_weights=level_weights,
-                 consts=consts).reshape(r, s, -1)
+    budgets = ray_budgets(cfg)
+    if budgets is None:
+        return query(params, points.reshape(r * s, 3), cfg,
+                     level_weights=level_weights,
+                     consts=consts).reshape(r, s, -1)
+    check_consts(cfg, consts)
+    x = contract(points.reshape(r * s, 3),
+                 cfg.contraction_radius).reshape(r, s, 3)
+    feat = hash_paged.paged_encode_rays(
+        x, params["feat_pool"], paged_meta(cfg), budgets,
+        compute_dtype=compute_dtype(cfg), chunk=cfg.encode_chunk,
+        haloed=_cached_haloed(params))
+    return _head(params, feat, level_weights, cfg)
+
+
+def compacted_runs(page_idx: torch.Tensor, budgets: tuple[int, ...],
+                   s2: int) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
+    """JAX ``query_compacted``'s run-time check on the compacted stream's
+    page indices [L, N] (N a multiple of ``s2``): per deduped level the
+    largest run count of a pseudo-row of ``s2`` samples, and ``ok``, a
+    0-d bool tensor: every level's count within its budget. On the device;
+    nothing is read on the host."""
+    ok = torch.ones((), dtype=torch.bool, device=page_idx.device)
+    runs = {}
+    for lvl, b in enumerate(budgets):
+        if not b:
+            continue
+        runs[lvl] = hash_paged.max_runs(page_idx[lvl].reshape(-1, s2))
+        ok = ok & (runs[lvl] <= b)
+    return ok, runs
 
 
 def query_compacted(params: Params, points: torch.Tensor, cfg: ModelConfig,
                     level_weights=None, consts: Params | None = None
                     ) -> torch.Tensor:
     """Flat [N, 3] query of the dense two-pass's compacted survivor
-    stream (``models/renderer.py``). The JAX package picks run-dedup or
-    the flat encode at run time; both give the same features ("exact
-    either way"), and the dedup exists to save TPU row fetches, so the
-    port encodes flat: this is :func:`query`."""
+    stream (``models/renderer.py``, pass 2).
+
+    With ``dense_two_pass_dedup`` JAX checks at run time whether each
+    deduped level's run counts over pseudo-rows of ``n_samples`` fit
+    :func:`compacted_budgets`, and takes the run-dedup encode if they do,
+    else the flat one; without it, the flat one. Where the counts fit, no
+    run id clamps, so the dedup's page indices are the flat ones: every
+    branch gives the flat encode's inputs, and the port encodes flat. The
+    check (:func:`compacted_runs`) runs only into an open
+    ``hash_paged.recording_runs`` list, as ``"compacted"`` entries, with
+    no host sync.
+    """
+    n = points.shape[0]
+    s2 = cfg.n_samples
+    budgets = compacted_budgets(cfg, s2)
+    if (cfg.dense_two_pass_dedup and hash_paged.recording()
+            and budgets is not None and n % s2 == 0 and n >= s2):
+        x = contract(points, cfg.contraction_radius)
+        page_idx, _, _ = hash_paged.page_indices(x.detach(), paged_meta(cfg))
+        _, runs = compacted_runs(page_idx, budgets, s2)
+        for lvl, count in runs.items():
+            hash_paged.record_runs("compacted", lvl, budgets[lvl], count)
     return query(params, points, cfg, level_weights=level_weights,
                  consts=consts)

@@ -18,6 +18,7 @@ or None otherwise.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -197,9 +198,11 @@ def _render_two_pass(params, smp, bg_color, cfg, level_weights, ray_emb,
     n = r * s
     fconsts = _field_consts(consts)
     with torch.no_grad():
-        feat1 = hash_field.query_rays(params["field"], smp.pts, cfg,
-                                      level_weights=level_weights,
-                                      consts=fconsts)
+        # run dedup off in pass 1, as in JAX: no backward to compress
+        feat1 = hash_field.query_rays(
+            params["field"], smp.pts,
+            dataclasses.replace(cfg, encode_dedup=False),
+            level_weights=level_weights, consts=fconsts)
         sigma1 = density_activation(feat1[..., 0], cfg.density_shift)
         sec1 = torch.where(smp.dt > 0.0, sigma1 * smp.dt,
                            torch.zeros((), device=smp.dt.device))

@@ -39,6 +39,7 @@ autograd, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -278,3 +279,139 @@ def paged_encode(points: torch.Tensor, pages: torch.Tensor,
     page_idx, local, frac = page_indices(points, meta)
     local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
     return _EncodeCore.apply(haloed, page_idx, local_frac, chunk)
+
+
+# ---------------------------------------------------------------------------
+# Ray-coherent run dedup (JAX ``hash_paged.py:231-342``, ``:609-699``)
+#
+# Samples along a ray visit a coarse level's pages in runs. The JAX
+# package fetches one row per run (a certified per-level budget B bounds
+# the runs a ray) and expands the runs back to samples with a one-hot
+# matmul, to save TPU row fetches. On the card a run's repeated row is
+# served by L1/L2, so the port keeps one row read per sample and gives
+# the encode each sample's run page, run_page[r, run_id[r, s]]: where no
+# run id clamps (the budgets are certified bounds) that is the sample's
+# own page, so the encode's inputs, and with them its features and both
+# gradients, are the flat path's bitwise; where a run id clamps, the
+# sample reads the row JAX's expansion gives it. ``trilinear_bwd``'s
+# stable page sort orders each page's entries by (ray, sample), the
+# order of JAX's runs sorted by page and expanded in sample order, so the
+# page gradient needs nothing of its own.
+# ---------------------------------------------------------------------------
+
+
+def dedup_budgets(meta: PagedMeta, s_per_ray: int, march: float,
+                  max_frac: float = 0.6,
+                  occ: tuple[int, int, int] | None = None
+                  ) -> tuple[int, ...]:
+    """Per-level run budgets (0 = level not deduped), a copy of the JAX
+    package's: the smaller of the march bound (1 + the block-boundary
+    crossings of a contracted path of length ``march``, + 8 of slack)
+    and, with ``occ=(keep, sps, n_segments)``, the occupancy sampler's
+    slot bound; rounded up to a multiple of 8, and kept only while at
+    most ``max_frac * s_per_ray``."""
+    out = []
+    for lvl in range(meta.n_levels):
+        scale = float(meta.scales[lvl])
+        b = int(np.ceil(np.sqrt(3.0) * march * scale / BLOCK)) + 8
+        if occ is not None:
+            keep, sps, n_seg = occ
+            seg_len = march / n_seg
+            per_slot = min(sps - 1,
+                           3 * (int(seg_len * scale / BLOCK) + 1))
+            b_occ = 1 + (keep - 1) + keep * per_slot + 12
+            b = min(b, b_occ)
+        b = ((b + 7) // 8) * 8
+        out.append(b if b <= max_frac * s_per_ray else 0)
+    return tuple(out)
+
+
+_run_log: list | None = None
+
+
+@contextlib.contextmanager
+def recording_runs():
+    """Record the run counts of every deduped level encoded inside the
+    block: yields a list that gains one dict per level and call,
+    ``{"kind": "rays" | "compacted", "level", "budget", "runs"}``, where
+    ``runs`` is the largest run count of a ray (of a pseudo-row for
+    ``"compacted"``), a 0-d device tensor: nothing is read on the host
+    until the caller reads it."""
+    global _run_log
+    outer, _run_log = _run_log, []
+    try:
+        yield _run_log
+    finally:
+        _run_log = outer
+
+
+def recording() -> bool:
+    """Whether a :func:`recording_runs` list is open."""
+    return _run_log is not None
+
+
+def record_runs(kind: str, level: int, budget: int,
+                runs: torch.Tensor) -> None:
+    """Add one entry to the open :func:`recording_runs` list, if any."""
+    if _run_log is not None:
+        _run_log.append({"kind": kind, "level": level, "budget": budget,
+                         "runs": runs})
+
+
+def max_runs(page_idx_l: torch.Tensor) -> torch.Tensor:
+    """The largest run count of a row of ``page_idx_l`` [R, S], 0-d."""
+    return (1 + (page_idx_l[:, 1:] != page_idx_l[:, :-1]).sum(dim=1)).max()
+
+
+def compute_runs(page_idx_l: torch.Tensor, budget: int, fill: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run-length structure of one level's page indices along rays (JAX
+    ``compute_runs``).
+
+    page_idx_l [R, S] int32 -> (run_id [R, S] int32 in [0, budget),
+    run_page [R, budget] int32). Run ids clamp at ``budget - 1``; unused
+    run slots hold ``fill``, the level's first page, which is also its
+    smallest global index, so the ``amax`` into a ``fill``-filled row is
+    JAX's ``max(where(run_id == b, page, fill))`` exactly, clamped runs
+    included (an integer max is the same in any order). No [R, S, B]
+    tensor is built.
+    """
+    r = page_idx_l.shape[0]
+    chg = (page_idx_l[:, 1:] != page_idx_l[:, :-1]).to(torch.int32)
+    run_id = torch.cat([chg.new_zeros((r, 1)),
+                        torch.cumsum(chg, dim=1, dtype=torch.int32)], dim=1)
+    run_id = torch.clamp(run_id, max=budget - 1)
+    run_page = page_idx_l.new_full((r, budget), fill)
+    run_page.scatter_reduce_(1, run_id.long(), page_idx_l, "amax",
+                             include_self=True)
+    return run_id, run_page
+
+
+def paged_encode_rays(points: torch.Tensor, pages: torch.Tensor,
+                      meta: PagedMeta, budgets: tuple[int, ...],
+                      compute_dtype=torch.bfloat16, chunk: int = 65536,
+                      haloed: torch.Tensor | None = None) -> torch.Tensor:
+    """Ray-structured encode with coarse-level run dedup (JAX
+    ``paged_encode_rays``; see the section comment above).
+
+    points [R, S, 3] contracted samples, t monotone over the valid
+    samples of a ray (both samplers give that); ``budgets`` from
+    :func:`dedup_budgets`; the other arguments as :func:`paged_encode`.
+    Returns [R, S, L*C] float32 features.
+    """
+    r, s = points.shape[0], points.shape[1]
+    if haloed is None:
+        haloed = halo_pages(pages, meta).to(compute_dtype)
+    page_idx, local, frac = page_indices(points.reshape(r * s, 3), meta)
+    with torch.profiler.record_function("compute_runs"):
+        for lvl, b in enumerate(budgets):
+            if not b:
+                continue
+            pl = page_idx[lvl].reshape(r, s)
+            if recording():
+                record_runs("rays", lvl, b, max_runs(pl))
+            run_id, run_page = compute_runs(pl, b, meta.page_offset[lvl])
+            page_idx[lvl] = run_page.gather(1, run_id.long()).reshape(r * s)
+    local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
+    feat = _EncodeCore.apply(haloed, page_idx, local_frac, chunk)
+    return feat.reshape(r, s, -1)

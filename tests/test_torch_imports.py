@@ -48,9 +48,16 @@ def test_port_module_list_is_complete():
                  "train.loop", "train.checkpoint", "apps.main",
                  "core.yaml_io", "utils.timer", "models.warp",
                  "apps.ros2_node", "ops.hash_encode", "utils.lpips",
-                 "utils.undistort"):
+                 "utils.undistort", "tools", "tools.common", "tools.eval",
+                 "tools.make_synthetic_dataset", "tools.quality_run",
+                 "tools.eval_holdout", "tools.localize_validation",
+                 "tools.localize_envelope", "tools.bench_localize",
+                 "tools.inter_poses", "tools.replay_dataset",
+                 "tools.resize_images", "tools.crop_images",
+                 "tools.rectify_images", "tools.concat_inference_images",
+                 "tools.train_synthetic"):
         assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
-    assert len(PORT_MODULES) >= 36
+    assert len(PORT_MODULES) >= 63
 
 
 @pytest.fixture(scope="module")

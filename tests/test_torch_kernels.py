@@ -427,3 +427,57 @@ def test_encode_point_gradient_on_the_card(cuda):
     scale = float(grads[3].abs().max())
     torch.testing.assert_close(grads[0], grads[3], rtol=0,
                                atol=1e-4 * scale)
+
+
+def _ray_samples(n_rays, n_samples, march, generator, device):
+    """[R, S, 3] points along straight rays from the centre region, t
+    monotone with jittered steps (the samplers' contract), clipped to the
+    contracted cube."""
+    o = (torch.rand((n_rays, 1, 3), generator=generator) - 0.5) * 0.8
+    d = torch.randn((n_rays, 1, 3), generator=generator)
+    d = d / d.norm(dim=-1, keepdim=True)
+    step = 0.5 + torch.rand((n_rays, n_samples, 1), generator=generator)
+    t = torch.cumsum(step, dim=1) * (march / n_samples)
+    return (o + d * t).clamp(-1.98, 1.98).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dedup_encode_bitwise_flat_on_the_card(cuda, dtype):
+    """Run dedup at ``Config()``'s budgets on 2,048 rays of 64 samples:
+    features, page gradient and point gradient bitwise the flat encode's
+    on the card (no run id clamps: the run counts are checked within
+    their budgets), and the kernels launched in both."""
+    cfg = Config().model
+    budgets = hash_field.ray_budgets(cfg)
+    meta = hash_field.paged_meta(cfg)
+    g = torch.Generator().manual_seed(5)
+    pages = (torch.rand((meta.total_pages, 4, 4, 4, 4), generator=g) * 2
+             - 1).to(cuda)
+    pts = _ray_samples(2048, 64, 64 / 256, g, cuda)
+    cot = torch.randn((2048, 64, 32), generator=g).to(cuda)
+    outs = []
+    for dedup in (True, False):
+        x = pts.clone().requires_grad_(True)
+        p = pages.clone().requires_grad_(True)
+        before = (trilinear.trilinear_fwd.launches,
+                  trilinear.trilinear_bwd.launches,
+                  trilinear.trilinear_bwd_frac.launches)
+        with hash_paged.recording_runs() as runs:
+            if dedup:
+                feat = hash_paged.paged_encode_rays(x, p, meta, budgets,
+                                                    compute_dtype=dtype)
+            else:
+                feat = hash_paged.paged_encode(
+                    x.reshape(-1, 3), p, meta,
+                    compute_dtype=dtype).reshape(2048, 64, -1)
+        (feat * cot).sum().backward()
+        after = (trilinear.trilinear_fwd.launches,
+                 trilinear.trilinear_bwd.launches,
+                 trilinear.trilinear_bwd_frac.launches)
+        assert all(a == b + 1 for a, b in zip(after, before))
+        assert len(runs) == (sum(map(bool, budgets)) if dedup else 0)
+        for e in runs:
+            assert 1 <= int(e["runs"]) <= e["budget"], e
+        outs.append((feat.detach(), p.grad, x.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
