@@ -176,6 +176,22 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    train`` trains here on the textured scene (``DENSE_RUN_STEPS``): wall
    and device ms of every part, the trained map's survivor share;
    launches per sub-path ``parts/{step,encode,dense,dense_trained}``.
+   Each part's device ms is the card's busy time in a ``torch.profiler``
+   window over its timed calls (``tools.common.time_part``), beside its
+   wall ms and busy share.
+17. The held-out diagnostics and ``bench_scaling`` (``diag_phase``),
+   with jax, PIL and yaml unimportable: ``tools.diag_holdout`` on phase
+   14's quality run (views 7 and 8: both as they are and with the
+   directions frozen, their depth percentiles; view 8's normal render
+   within ``DIAG_TOL_DB`` of its ``summary.tsv`` row),
+   ``tools.eval_appearance_ab`` on it with ``--embs none,mean,own`` (the
+   ``emb=none ss=1`` row equal to the summary's train and held-out means
+   to ``AB_TOL_DB``), ``tools.bench_scaling`` in train and render mode
+   at ``Config()``, 8192 rays, ``--counts 1`` in this process (rays/s
+   beside phase 4's), then ``--multiprocess 2 --quick`` on two gloo CPU
+   ranks (plumbing: its efficiency is a CPU figure); launches per
+   sub-path ``diag/{diag_holdout,eval_appearance_ab,scaling_train,
+   scaling_render}``.
 
 Run dedup (``encode_dedup``, on by default) runs in phases 3-5 and 10;
 after phases 3-5, and inside phase 10, it is also switched off and on in
@@ -195,7 +211,8 @@ then exits non-zero. Otherwise one JSON line per the kernels (with the
 launches by path: the warp paths under ``warp/``, the node's under
 ``node/``, the two-pass's under ``dense/``, xor's under ``xor/``, the
 multi-device paths' under ``distributed/``, data prep's under
-``dataprep/``, the parts benches' under ``parts/``), the
+``dataprep/``, the parts benches' under ``parts/``, the diagnostics'
+and ``bench_scaling``'s under ``diag/``), the
 ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -3652,6 +3669,116 @@ def parts_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
     return res
 
 
+# -- phase 17: the held-out diagnostics and bench_scaling -----------------
+
+DIAG_TOL_DB = 0.05     # view 8 by diag_holdout vs its summary.tsv row
+AB_TOL_DB = 0.01       # eval_appearance_ab's none / ss=1 vs summary means
+DIAG_VIEWS = {"holdout": 8, "train": 7}
+SCALING_FLAGS = ["--rays", "8192", "--counts", "1"]   # Config(), one card
+GLOO_FLAGS = ["--multiprocess", "2", "--quick", "--iters", "2", "--rays",
+              "256"]
+
+
+def _json_lines(text: str) -> list[dict]:
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def diag_phase(seed: int, dev: torch.device, run: pathlib.Path,
+               training: dict | None) -> dict:
+    """Phase 17 (module docstring) on phase 14's quality run ``run``;
+    ``training``: phase 4's result, for its rays/s."""
+    from f2nerf_tpu_torch.tools import (bench_scaling, diag_holdout,
+                                        eval_appearance_ab)
+
+    dev_flag = ["--device", str(dev)]
+    scene = ["--scene", TOOLS_FLAGS[TOOLS_FLAGS.index("--scene") + 1],
+             "--n_images", TOOLS_FLAGS[TOOLS_FLAGS.index("--n_images") + 1],
+             "--hw", TOOLS_FLAGS[TOOLS_FLAGS.index("--hw") + 1],
+             "--holdout_every", str(TOOLS_HOLDOUT)]
+    summary = _tsv(run / "summary.tsv")
+    sub, res = {}, {}
+    with unimportable("jax", "PIL", "yaml"):
+        sub["diag/diag_holdout"], (rc, text) = _subpath(
+            "diag/diag_holdout", ("trilinear_fwd",),
+            lambda: _tool(diag_holdout.main, str(run), *scene,
+                          "--holdout_view", str(DIAG_VIEWS["holdout"]),
+                          "--train_view", str(DIAG_VIEWS["train"]),
+                          *dev_flag))
+        views = {}
+        for line in text.splitlines():
+            m = re.match(r"view (\d+) (\w+): psnr (\S+) "
+                         r"depth\[p10,p50,p90\]=\[(.*)\]", line)
+            if m:
+                views[m[2]] = {"view": int(m[1]), "psnr": float(m[3]),
+                               "depth_p10_p50_p90": [
+                                   float(x) for x in m[4].split(",")]}
+        res["diag_holdout"] = views
+        sub["diag/eval_appearance_ab"], (rc_ab, text) = _subpath(
+            "diag/eval_appearance_ab", ("trilinear_fwd",),
+            lambda: _tool(eval_appearance_ab.main, str(run), *scene,
+                          "--embs", "none,mean,own", *dev_flag))
+        arms = {}
+        for line in text.splitlines():
+            if line.startswith("emb="):
+                f = line.split()
+                arms[f"{f[0]} {f[1]}"] = dict(zip(
+                    ("train_psnr", "holdout_psnr", "train_ssim",
+                     "holdout_ssim", "gap"), map(float, f[2:7])))
+        res["eval_appearance_ab"] = arms
+        for mode in ("train", "render"):
+            sub[f"diag/scaling_{mode}"], (_, text) = _subpath(
+                f"diag/scaling_{mode}",
+                ("trilinear_fwd", "trilinear_bwd") if mode == "train"
+                else ("trilinear_fwd",),
+                lambda mode=mode: _tool(bench_scaling.main, "--mode", mode,
+                                        *SCALING_FLAGS, *dev_flag))
+            res[f"scaling_{mode}"] = _json_lines(text)
+        t0 = time.perf_counter()
+        _, text = _tool(bench_scaling.main, *GLOO_FLAGS)
+        res["scaling_gloo_cpu"] = _json_lines(text)
+        res["scaling_gloo_cpu_s"] = time.perf_counter() - t0
+    split = {tag: [r for r in summary if r["split"] == tag]
+             for tag in ("train", "holdout")}
+    row8 = next(float(r["psnr"]) for r in summary
+                if int(r["image_idx"]) == DIAG_VIEWS["holdout"])
+    base = arms.get("emb=none ss=1", {})
+    means = {tag: _mean(split[tag], "psnr") for tag in split}
+    train_rate = res["scaling_train"][0]["rays_per_s"] \
+        if res["scaling_train"] else float("nan")
+    phase4 = training["rays_per_s"] if training else float("nan")
+    gloo = res["scaling_gloo_cpu"]
+    log(f"diag: view {DIAG_VIEWS['holdout']} held out "
+        f"{views.get('holdout', {}).get('psnr')} dB by diag_holdout vs "
+        f"{row8:.4f} in summary.tsv; frozen directions "
+        f"{views.get('holdout_fixdir', {}).get('psnr')} dB; eval_appearance"
+        f"_ab none/ss=1 {base} vs summary means {means}")
+    log(f"diag: bench_scaling at Config(), 8192 rays, 1 card: train "
+        f"{train_rate} rays/s (phase 4: {phase4:.0f}), render "
+        f"{res['scaling_render'][0]['rays_per_s'] if res['scaling_render'] else None}"
+        f" rays/s; two gloo CPU ranks (--quick, a CPU figure, not the "
+        f"card's): {gloo[-1] if gloo else None} in "
+        f"{res['scaling_gloo_cpu_s']:.1f} s")
+    finite = all(np.isfinite([v["psnr"], *v["depth_p10_p50_p90"]]).all()
+                 for v in views.values())
+    ok = (rc == 0 and rc_ab == 0 and len(views) == 4 and finite
+          and abs(views["holdout"]["psnr"] - row8) <= DIAG_TOL_DB
+          and len(arms) == 6 and base
+          and abs(base["train_psnr"] - means["train"]) <= AB_TOL_DB
+          and abs(base["holdout_psnr"] - means["holdout"]) <= AB_TOL_DB
+          and all(len(res[f"scaling_{m}"]) == 2 and
+                  res[f"scaling_{m}"][0]["rays_per_s"] > 0
+                  for m in ("train", "render"))
+          and [x.get("devices") for x in gloo] == [1, 2, None]
+          and gloo[-1]["value"] > 0)
+    res.update(summary_view8_psnr=row8, summary_means=means,
+               phase4_rays_per_s=phase4)
+    if not ok:
+        raise RuntimeError(f"the diagnostics' outputs fail their checks: "
+                           f"{res}")
+    res["subpaths"] = sub
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3756,6 +3883,9 @@ def main() -> int:
         runs["parts"] = phase("parts", parts_phase, args.seed, dev,
                               work / "parts")
         add_paths("", runs["parts"])
+        runs["diag"] = phase("diag", diag_phase, args.seed, dev,
+                             work / "tools" / "run", paths["training"])
+        add_paths("", runs["diag"])
     runs["dense"] = phase("dense two-pass", dense_phase, args.seed, dev,
                           kernels)
     add_paths("dense/", runs["dense"])

@@ -8,7 +8,8 @@ and without it, the render forward (TRAIN, masked compositing), forward
     python -m f2nerf_tpu_torch.tools.bench_dense_parts [--device cpu]
 
 Each part prints the JAX script's label with its wall ms (host clock up
-to a synchronize) and device ms (CUDA events), per call.
+to a synchronize), device ms (the card's busy time in a profile of
+the same calls) and busy share, per call (``common.time_part``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def dense_config(cfg: Config, rays: int) -> Config:
 
 def measure(cfg: Config, rays: int = 512, device=None, iters: int = 10
             ) -> dict:
-    """{"samples", "budgets", label: {"wall_ms", "device_ms"}} of each
+    """{"samples", "budgets", label: {"wall_ms", "device_ms", "busy_share"}} of each
     part, at ``cfg`` made dense and ``rays`` (``main``: ``Config()`` and
     512, the JAX script's)."""
     dev = resolve_device(device)

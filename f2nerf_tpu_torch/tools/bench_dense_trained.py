@@ -15,12 +15,14 @@ the JAX script, the rays come from ``make_checker_dataset`` with two
 views more than the run's (a ring of the same radius; only the cameras
 are used) and ``trans_eps`` overrides the config's to probe a later
 survivor regime. Each variant prints the JAX script's line with its wall
-ms (host clock up to a synchronize) and device ms (CUDA events).
+ms (host clock up to a synchronize), device ms (the card's busy time
+in a profile of the same calls) and busy share (``common.time_part``).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import dataclasses
 import pathlib
 
@@ -38,7 +40,8 @@ from f2nerf_tpu_torch.models import sampler as sampler_mod
 from f2nerf_tpu_torch.ops import hash_paged
 from f2nerf_tpu_torch.ops.composite import density_activation, exclusive_cumsum
 from f2nerf_tpu_torch.ops.contraction import contract
-from f2nerf_tpu_torch.tools.common import add_device_flag, time_part
+from f2nerf_tpu_torch.tools.common import (add_device_flag, device_text,
+                                           time_part)
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import make_optimizer
 from f2nerf_tpu_torch.train.step import make_train_step
@@ -169,16 +172,14 @@ def measure(run_dir, arm: str = "all", rays: int = 512,
         gt = rng.random((rays, 3)).astype(np.float32)
         batch = [torch.as_tensor(x, device=dev) for x in (cam, ij, gt)]
         # the warm-up call at step 19000, then 19000, 19001, ...
-        steps = iter([19000, *range(19000, 19000 + iters)])
+        steps = itertools.chain([19000], itertools.count(19000))
         t = time_part(lambda: step_fn(params, None, poses, intr, next(steps),
                                       *batch, consts=consts), dev, iters)
         t["rays_per_s"] = rays / t["wall_ms"] * 1e3
         out["arms"][f"two_pass={tp} surv_dedup={dd}"] = t
-        dev_ms = ("not measured" if t["device_ms"] is None
-                  else f"{t['device_ms']:7.2f} ms")
         lines.append(f"two_pass={tp} surv_dedup={dd}: {t['wall_ms']:7.2f} "
-                     f"ms/step ({t['rays_per_s']:7.0f} rays/s) (device "
-                     f"{dev_ms})")
+                     f"ms/step ({t['rays_per_s']:7.0f} rays/s) "
+                     f"({device_text(t, '7.2f')})")
     out["lines"] = lines
     return out
 

@@ -10,7 +10,8 @@ run dedup at its budgets.
 The forward launches ``trilinear_fwd``, the backward for the pages
 ``trilinear_bwd`` and the one for the points ``trilinear_bwd_frac`` too.
 Each part prints the JAX script's label with its wall ms (host clock up
-to a synchronize) and device ms (CUDA events), per call.
+to a synchronize), device ms (the card's busy time in a profile of
+the same calls) and busy share, per call (``common.time_part``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from f2nerf_tpu_torch.train.step import make_train_step
 
 def measure(cfg: Config, rays: int = 8192, device=None, iters: int = 10
             ) -> dict:
-    """{"budgets": the dedup budgets, label: {"wall_ms", "device_ms"}}
+    """{"budgets": the dedup budgets, label: {"wall_ms", "device_ms", "busy_share"}}
     of each part, at ``cfg`` and ``rays`` (``main``: ``Config()`` and
     8192, the JAX script's)."""
     dev = resolve_device(device)

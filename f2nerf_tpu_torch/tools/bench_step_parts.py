@@ -7,7 +7,8 @@ point: ``Config()``, 8192 rays, seeded params and rays.
     python -m f2nerf_tpu_torch.tools.bench_step_parts [--device cpu]
 
 Each part prints the JAX script's label with its wall ms (host clock up
-to a synchronize) and device ms (CUDA events), per call.
+to a synchronize), device ms (the card's busy time in a profile of
+the same calls) and busy share, per call (``common.time_part``).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def seeded_rays(rng: np.random.Generator, rays: int, dev: torch.device):
 
 def measure(cfg: Config, rays: int = 8192, device=None, iters: int = 10
             ) -> dict:
-    """{label: {"wall_ms", "device_ms"}} of each part, at ``cfg`` and
+    """{label: {"wall_ms", "device_ms", "busy_share"}} of each part, at ``cfg`` and
     ``rays`` (``main``: the JAX script's ``Config()`` and 8192)."""
     dev = resolve_device(device)
     mcfg = cfg.model

@@ -1,12 +1,13 @@
 """Pieces the tools share: the synthetic scenes by name, the holdout
-split, the ``--device`` flag and the localizer over a quality run's
-checkpoint."""
+split, the ``--device`` flag, a quality run's checkpoint restored (and a
+localizer over it), and the parts benches' timer."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import pathlib
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -45,18 +46,25 @@ def add_device_flag(ap: argparse.ArgumentParser) -> None:
                          "plain PyTorch path)")
 
 
-def checkpoint_localizer(result_dir: pathlib.Path, train_ds: Dataset,
-                         intrinsic: np.ndarray, hw: int, device,
-                         render_pixel_num: int = 512):
-    """A ``Localizer`` over the newest checkpoint of a quality run, in
-    the training views' frame (the JAX scripts' set-up): a ``Trainer`` on
-    ``train_ds`` resolves the config (auto ``sample_near``) and writes its
-    run files into ``<result_dir>/diag_tmp``; the params, constants and
-    grid come from ``<result_dir>/checkpoints``. Returns (localizer,
-    checkpoint step)."""
+class RestoredRun(NamedTuple):
+    """A quality run's newest checkpoint, on its device."""
+    cfg: Any               # the Trainer's config (auto ``sample_near`` resolved)
+    params: dict
+    consts: dict
+    occ_vals: Any          # ``occupancy.occ_values`` of the grid, or None
+    step: int
+    device: Any
+
+
+def restore_run(result_dir: pathlib.Path, train_ds: Dataset, device
+                ) -> RestoredRun:
+    """The newest checkpoint of a quality run, in the training views'
+    frame (the JAX scripts' set-up): a ``Trainer`` on ``train_ds``
+    resolves the config (auto ``sample_near``) and writes its run files
+    into ``<result_dir>/diag_tmp``; the params, constants and grid come
+    from ``<result_dir>/checkpoints``."""
     from f2nerf_tpu_torch.convert import unflatten
     from f2nerf_tpu_torch.core.config import Config
-    from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
     from f2nerf_tpu_torch.models import occupancy
     from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
     from f2nerf_tpu_torch.train.loop import Trainer
@@ -75,12 +83,24 @@ def checkpoint_localizer(result_dir: pathlib.Path, train_ds: Dataset,
     if tr.cfg.model.sampler_mode == "occ":
         occ_vals = occupancy.occ_values(state["occ_grid"].to(tr.device),
                                         tr.cfg.model)
-    loc = Localizer(params, tr.cfg, np.asarray(intrinsic),
+    return RestoredRun(tr.cfg, params, consts, occ_vals, int(state["step"]),
+                       tr.device)
+
+
+def checkpoint_localizer(result_dir: pathlib.Path, train_ds: Dataset,
+                         intrinsic: np.ndarray, hw: int, device,
+                         render_pixel_num: int = 512):
+    """A ``Localizer`` over the newest checkpoint of a quality run
+    (:func:`restore_run`). Returns (localizer, checkpoint step)."""
+    from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
+
+    run = restore_run(result_dir, train_ds, device)
+    loc = Localizer(run.params, run.cfg, np.asarray(intrinsic),
                     np.zeros(3), 1.0, hw, hw,
                     param=LocalizerParam(render_pixel_num=render_pixel_num),
-                    occ_vals=occ_vals, seed=0, device=tr.device,
-                    consts=consts)
-    return loc, int(state["step"])
+                    occ_vals=run.occ_vals, seed=0, device=run.device,
+                    consts=run.consts)
+    return loc, run.step
 
 
 def perturb_pose(rng: np.random.Generator, pose: np.ndarray, pos_noise: float,
@@ -99,43 +119,69 @@ def perturb_pose(rng: np.random.Generator, pose: np.ndarray, pos_noise: float,
     return noisy
 
 
+def kernel_ms(events) -> float:
+    """The card's busy time in ms among a profile's raw events
+    (``prof.profiler.kineto_results.events()``; building ``prof.events()``
+    from them takes seconds a window): the summed durations of the events
+    that ran on the card (kernels, copies, fills), a kernel's duration
+    being its self device time. User annotations (``record_function``
+    ranges, e.g. ``Optimizer.step#Adam.step``) are left out, as they span
+    kernels counted on their own; host events are left out."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in events
+               if e.device_type() == cuda and not e.is_user_annotation()
+               ) / 1e6
+
+
 def time_part(fn, device, iters: int = 10) -> dict:
-    """One warm-up call of ``fn``, then ``iters`` calls timed two ways:
+    """One warm-up call of ``fn``, then ``iters`` calls timed, per call:
     ``wall_ms``, the host clock around the calls up to a synchronize;
-    ``device_ms``, CUDA events recorded before and after them (None off
-    the card: a CPU run measures no device). Both per call."""
+    ``device_ms``, the card's busy time in ``iters`` more calls
+    (:func:`kernel_ms` of a ``torch.profiler`` window over them: the
+    profiler's callbacks slow the host, so the wall is taken without
+    it); ``busy_share``, ``device_ms / wall_ms``. Off the card both stay
+    None: a CPU run measures no device."""
     import time
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
 
-    def sync():
+    def timed() -> float:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
         if cuda:
             torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) / iters * 1e3
 
     fn()
-    sync()
-    if cuda:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    if cuda:
-        end.record()
-    sync()
-    wall = (time.perf_counter() - t0) / iters * 1e3
-    return {"wall_ms": wall,
-            "device_ms": start.elapsed_time(end) / iters if cuda else None}
+    if not cuda:
+        return {"wall_ms": timed(), "device_ms": None, "busy_share": None}
+    torch.cuda.synchronize(device)
+    wall = timed()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed()
+    dev_ms = kernel_ms(prof.profiler.kineto_results.events()) / iters
+    return {"wall_ms": wall, "device_ms": dev_ms,
+            "busy_share": dev_ms / wall}
+
+
+def device_text(t: dict, fmt: str = "8.2f") -> str:
+    """``device <ms> ms, busy <share>``, or ``device not measured``."""
+    if t["device_ms"] is None:
+        return "device not measured"
+    return (f"device {t['device_ms']:{fmt}} ms, busy "
+            f"{t['busy_share']:.1%}")
 
 
 def part_line(label: str, t: dict, suffix: str = "", width: int = 0) -> str:
-    """``label wall ms (device ms)``: the JAX script's label, padded to
-    ``width`` as it pads it, and its number's format, the device time
-    beside it."""
-    dev = ("not measured" if t["device_ms"] is None
-           else f"{t['device_ms']:8.2f} ms")
+    """``label wall ms (device ms, busy share)``: the JAX script's label,
+    padded to ``width`` as it pads it, and its number's format, the
+    card's busy time beside it."""
     return (f"{label.ljust(width)} {t['wall_ms']:8.2f} ms{suffix} "
-            f"(device {dev})")
+            f"({device_text(t)})")

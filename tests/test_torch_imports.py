@@ -60,9 +60,11 @@ def test_port_module_list_is_complete():
                  "tools.convert_pose_tsv_to_f2_format", "tools.particles_log",
                  "tools.modified_offset_by_particles_log",
                  "tools.bench_step_parts", "tools.bench_encode_parts",
-                 "tools.bench_dense_parts", "tools.bench_dense_trained"):
+                 "tools.bench_dense_parts", "tools.bench_dense_trained",
+                 "tools.diag_holdout", "tools.eval_appearance_ab",
+                 "tools.bench_scaling"):
         assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
-    assert len(PORT_MODULES) >= 73
+    assert len(PORT_MODULES) >= 76
 
 
 @pytest.fixture(scope="module")

@@ -86,6 +86,47 @@ def _occ_tiny(cfg):
         cfg.model, sampler_mode="occ", occ_grid_res=16, occ_segments=16))
 
 
+def test_kernel_ms_sums_the_cards_events():
+    """``common.kernel_ms`` sums the durations of the raw profile events
+    that ran on the card and leaves out user annotations, which span
+    kernels counted on their own, and host events."""
+    from types import SimpleNamespace
+
+    from f2nerf_tpu_torch.tools.common import kernel_ms
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(device, ns, annotation=False):
+        return SimpleNamespace(device_type=lambda: device,
+                               duration_ns=lambda: ns,
+                               is_user_annotation=lambda: annotation)
+
+    events = [event(cuda, 1_500_000),            # a kernel
+              event(cuda, 250_000),              # a copy
+              event(cuda, 9_000_000_000, True),  # Optimizer.step#Adam.step
+              event(cpu, 7_000_000_000),         # aten::mul on the host
+              event(cpu, 3_000_000, True),       # a host-side range
+              event(cuda, 125_000)]
+    assert kernel_ms(events) == pytest.approx(1.875, rel=0, abs=1e-12)
+    assert kernel_ms([]) == 0.0
+
+
+def test_time_part_measures_no_device_off_the_card():
+    """On the CPU the part is called once, then ``iters`` times; its wall
+    time is measured and its device time and busy share stay None."""
+    from f2nerf_tpu_torch.tools.common import part_line, time_part
+
+    calls = []
+    t = time_part(lambda: calls.append(1), "cpu", iters=3)
+    assert len(calls) == 4
+    assert t["wall_ms"] >= 0
+    assert t["device_ms"] is None and t["busy_share"] is None
+    assert part_line("x:", t).endswith("ms (device not measured)")
+    shown = part_line("x:", {"wall_ms": 4.0, "device_ms": 1.0,
+                             "busy_share": 0.25})
+    assert shown == "x:     4.00 ms (device     1.00 ms, busy 25.0%)"
+
+
 def test_step_parts_tiny():
     cfg = _occ_tiny(TConfig.tiny())
     out = bench_step_parts.measure(cfg, rays=64, device="cpu", iters=2)

@@ -21,6 +21,10 @@ What is held, and how:
   ``Config.quality``'s model cut to ``tiny_cfg``'s in both packages):
   PSNR atol 1e-3 dB, SSIM atol 1e-4, score rtol 1e-3 (the renders of
   params that agree to 0.05 lr, ``test_torch_loop.py``);
+* ``diag_holdout`` and ``eval_appearance_ab`` against the scripts on
+  those two runs (the values each script prints, read unrounded from the
+  metric and percentile calls); ``bench_scaling``'s lines over stubbed
+  rates, and a real run on two gloo ranks;
 * each tool family runs in a subprocess where ``jax``, ``PIL``, ``yaml``
   and ``f2nerf_tpu`` raise on import: what the machine with the card has.
 """
@@ -32,25 +36,31 @@ import importlib.util
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import yaml
 from test_torch_train import jax_noise
 
 from f2nerf_tpu.core.config import Config as JConfig
 from f2nerf_tpu.data import dataset as jdata
 from f2nerf_tpu.localize import localizer as jloc
+from f2nerf_tpu.models import renderer as jrenderer
 from f2nerf_tpu.train import checkpoint as jckpt
 from f2nerf_tpu.train import loop as jloop
 from f2nerf_tpu.utils import lpips as jlp
+from f2nerf_tpu.utils import metrics as jmetrics
 from f2nerf_tpu_torch.core.config import Config as TConfig
-from f2nerf_tpu_torch.tools import (bench_localize, common,
+from f2nerf_tpu_torch.tools import (bench_localize, bench_scaling, common,
                                     concat_inference_images, crop_images,
-                                    eval as teval, eval_holdout,
+                                    diag_holdout, eval as teval,
+                                    eval_appearance_ab, eval_holdout,
                                     inter_poses, localize_envelope,
                                     localize_validation,
                                     make_synthetic_dataset, quality_run,
@@ -127,7 +137,10 @@ TOOLS = {
     "resize_images": (resize_images, False),
     "crop_images": (crop_images, False),
     "rectify_images": (rectify_images, False),
-    "concat_inference_images": (concat_inference_images, False)}
+    "concat_inference_images": (concat_inference_images, False),
+    "diag_holdout": (diag_holdout, True),
+    "eval_appearance_ab": (eval_appearance_ab, True),
+    "bench_scaling": (bench_scaling, True)}
 
 
 @pytest.mark.parametrize("name", list(TOOLS))
@@ -587,6 +600,171 @@ def test_checkpoint_localizer(both_runs):
     assert (both_runs / "t" / "diag_tmp" / "train_config.yaml").is_file()
 
 
+# -- the held-out diagnostics on both runs --------------------------------
+
+DIAG_ARGV = ["--scene", "sphere", "--n_images", "6", "--hw", "16",
+             "--holdout_every", "3"]
+NUMBER = r"-?\d+\.\d+"
+
+
+@pytest.fixture
+def jax_run_patches(monkeypatch):
+    """``both_runs``' patches, again while a JAX script runs on its run:
+    the one-device trainer, the small quality preset, JAX's config left
+    alone."""
+    monkeypatch.setattr(jax.config, "update", lambda *a, **k: None)
+    monkeypatch.setattr(JConfig, "quality", _small_quality(JConfig))
+    monkeypatch.setattr(jloop, "Trainer", _JaxTrainer)
+
+
+def _record(monkeypatch, owner, name: str, store: list, keep=None):
+    """Wrap ``owner.name`` so that each call's result (when ``keep(result,
+    *args)`` holds) is appended to ``store`` as a numpy array."""
+    real = getattr(owner, name)
+
+    def wrapped(*a, **kw):
+        out = real(*a, **kw)
+        if keep is None or keep(out, *a):
+            store.append(np.asarray(out))
+        return out
+    monkeypatch.setattr(owner, name, wrapped)
+
+
+def _shape(lines: list[str]) -> list[str]:
+    """The printed lines with their numbers blanked."""
+    return [re.sub(NUMBER, "#", line) for line in lines]
+
+
+def test_diag_holdout_matches_the_script(both_runs, monkeypatch, capsys,
+                                         jax_run_patches):
+    """Each of the four renders: PSNR within 1e-3 dB and depth
+    percentiles within 1e-4 (the VALIDATE render's tolerance after 4
+    steps of both trainers, ``test_eval_holdout_matches``); the same
+    printed lines and PNGs."""
+    psnrs = {"j": [], "t": []}
+    pcts = {"j": [], "t": []}
+
+    def pct_keep(out, a, q=None):
+        return np.ndim(q) == 1 and list(q) == [10, 50, 90]
+
+    argv = [*DIAG_ARGV, "--holdout_view", "3", "--train_view", "1"]
+    with monkeypatch.context() as mp:
+        _record(mp, jmetrics, "psnr", psnrs["j"])
+        _record(mp, np, "percentile", pcts["j"], pct_keep)
+        capsys.readouterr()
+        assert _run_script(mp, "diag_holdout",
+                           [str(both_runs / "j"), *argv]) == 0
+        jout = capsys.readouterr().out.splitlines()
+    with monkeypatch.context() as mp:
+        _record(mp, diag_holdout, "psnr", psnrs["t"])
+        _record(mp, np, "percentile", pcts["t"], pct_keep)
+        assert diag_holdout.main([str(both_runs / "t"), *argv,
+                                  "--device", "cpu"]) == 0
+        tout = capsys.readouterr().out.splitlines()
+    assert _shape(tout) == _shape(jout)
+    assert [line.split(":")[0] for line in tout[1:]] == [
+        "view 1 train", "view 3 holdout", "view 3 holdout_fixdir",
+        "view 1 train_fixdir"]
+    assert len(psnrs["t"]) == len(psnrs["j"]) == 4
+    np.testing.assert_allclose(psnrs["t"], psnrs["j"], rtol=0, atol=1e-3)
+    assert len(pcts["t"]) == len(pcts["j"]) == 4
+    np.testing.assert_allclose(pcts["t"], pcts["j"], rtol=0, atol=1e-4)
+    # the frozen direction moves the colors, not the geometry
+    np.testing.assert_array_equal(pcts["t"][1], pcts["t"][2])
+    names = sorted(p.name for p in (both_runs / "j").glob("diag_*.png"))
+    assert len(names) == 8
+    assert sorted(p.name for p in (both_runs / "t").glob("diag_*.png")) \
+        == names
+    for n in names:
+        assert read_image(both_runs / "t" / n).shape == \
+            read_image(both_runs / "j" / n).shape == (16, 16, 3)
+
+
+def test_eval_appearance_ab_matches_the_script(both_runs, monkeypatch,
+                                               capsys, jax_run_patches):
+    """The ``app_emb`` norms within 1e-5; every view of every arm (the
+    mean, own and no embedding, at supersample 1 and 2): PSNR within
+    1e-3 dB, SSIM within 1e-4 (``test_quality_run_summary_matches``'
+    tolerances). The script renders in chunks of 16384 rays, each padded
+    to that size; JAX's renders here take chunks of 256, the rays of one
+    view (a VALIDATE render's rays are independent), which saves the CPU
+    63 padded chunks a view."""
+    got = {side: {"psnr": [], "ssim": [], "norm": []} for side in "jt"}
+    real_render = jrenderer.render_image
+
+    def emb_rows(out, x, *a):
+        return not isinstance(out, jax.core.Tracer) and x.shape[-1] == 16
+
+    argv = [*DIAG_ARGV, "--embs", "none,mean,own"]
+    with monkeypatch.context() as mp:
+        for metric in ("psnr", "ssim"):
+            _record(mp, jmetrics, metric, got["j"][metric])
+        _record(mp, jnp.linalg, "norm", got["j"]["norm"], emb_rows)
+        mp.setattr(jrenderer, "render_image", lambda *a, **kw: real_render(
+            *a, **{**kw, "chunk": 256}))
+        capsys.readouterr()
+        assert _run_script(mp, "eval_appearance_ab",
+                           [str(both_runs / "j"), *argv]) == 0
+        jout = capsys.readouterr().out.splitlines()
+    with monkeypatch.context() as mp:
+        for metric in ("psnr", "ssim"):
+            _record(mp, eval_appearance_ab, metric, got["t"][metric])
+        _record(mp, torch.linalg, "vector_norm", got["t"]["norm"], emb_rows)
+        assert eval_appearance_ab.main([str(both_runs / "t"), *argv,
+                                        "--device", "cpu"]) == 0
+        tout = capsys.readouterr().out.splitlines()
+    assert _shape(tout) == _shape(jout) and len(tout) == 3 + 6
+    assert [line.split()[:2] for line in tout[3:]] == [
+        [f"emb={e}", f"ss={s}"] for s in (1, 2)
+        for e in ("none", "mean", "own")]
+    norms = {side: (float(got[side]["norm"][0]),
+                    float(np.mean(got[side]["norm"][1])))
+             for side in "jt"}
+    assert [n.shape for n in got["t"]["norm"]] == [(), (4,)]
+    np.testing.assert_allclose(norms["t"], norms["j"], rtol=0, atol=1e-5)
+    for metric, tol in (("psnr", 1e-3), ("ssim", 1e-4)):
+        assert len(got["t"][metric]) == len(got["j"][metric]) == 6 * 6
+        np.testing.assert_allclose(got["t"][metric], got["j"][metric],
+                                   rtol=0, atol=tol)
+
+
+def test_bench_scaling_summary_matches_the_script(monkeypatch, capsys):
+    """With the bench functions stubbed to given rates, the port prints
+    the script's lines: at one count through ``main``, at three through
+    :func:`bench_scaling.summary`."""
+    rates = {1: 1000.0, 2: 1900.4, 4: 3456.78}
+    script = _script("bench_scaling")
+    monkeypatch.setattr(script, "bench_devices",
+                        lambda n, cfg, iters: rates[n])
+    monkeypatch.setattr(bench_scaling, "bench_devices",
+                        lambda mesh, cfg, iters: rates[mesh.size])
+    capsys.readouterr()
+    want = {}
+    for counts in ("1", "1,2,4"):
+        monkeypatch.setattr(sys, "argv", ["bench_scaling", "--quick",
+                                          "--counts", counts])
+        script.main()
+        want[counts] = capsys.readouterr().out.splitlines()
+    bench_scaling.main(["--quick", "--counts", "1", "--device", "cpu"])
+    assert capsys.readouterr().out.splitlines() == want["1"]
+    assert len(want["1,2,4"]) == 4
+    assert json.dumps(bench_scaling.summary(rates)) == want["1,2,4"][-1]
+
+
+def test_bench_scaling_gloo_ranks(capsys):
+    """Two gloo ranks of the tool on the CPU: a line per count of the
+    default sweep (1, 2) from rank 0, then the summary."""
+    capsys.readouterr()
+    bench_scaling.main(["--multiprocess", "2", "--quick", "--iters", "1",
+                        "--rays", "256"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x.get("devices") for x in lines] == [1, 2, None]
+    assert all(x["rays_per_s"] > 0 for x in lines[:2])
+    assert lines[2]["metric"] == "scaling_efficiency"
+    assert set(lines[2]["per_devices"]) == {"1", "2"}
+    assert lines[2]["per_devices"]["1"] == 1.0 and lines[2]["value"] > 0
+
+
 # -- the families without jax, PIL or yaml --------------------------------
 
 _BLOCKED = r"""
@@ -652,6 +830,12 @@ tool("quality_run", "@/run", *flags, "--holdout", "3", "--steps", "2",
      "--rays", "16", "--sampler", "dense", "--n_levels", "2",
      "--log2_table_size", "10", "--n_channels", "2", "--device", "cpu")
 tool("eval_holdout", "@/run", "@/ds_holdout", "--device", "cpu")
+tool("diag_holdout", "@/run", *flags, "--holdout_every", "3",
+     "--holdout_view", "3", "--train_view", "1", "--device", "cpu")
+tool("eval_appearance_ab", "@/run", *flags, "--holdout_every", "3",
+     "--supersamples", "1", "--embs", "none,own", "--device", "cpu")
+tool("bench_scaling", "--quick", "--iters", "1", "--rays", "64",
+     "--device", "cpu")
 from f2nerf_tpu_torch.utils import lpips
 lpips.make_random_weights(work + "/lpips.pt")
 import os
@@ -707,6 +891,7 @@ FAMILY_FILES = {
              "ds/poses_render.npy", "raw/images/0.png", "small/1.png",
              "cat/1.png"],
     "map": ["run/summary.tsv", "run/holdout_summary.tsv", "pred/info.json",
+            "run/diag_holdout_fixdir_3_depth.png", "run/diag_train_1.png",
             "run/diag_tmp/train_config.yaml", "example/train_log.txt",
             "ds_holdout/replay_log.tsv"],
 }
