@@ -192,6 +192,23 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    ranks (plumbing: its efficiency is a CPU figure); launches per
    sub-path ``diag/{diag_holdout,eval_appearance_ab,scaling_train,
    scaling_render}``.
+18. The JAX system's entry points (``entry_phase``): (a)
+   ``f2nerf_tpu_torch.bench.measure`` in each of ``bench.py``'s arms
+   (the default, ``--no-quality-machinery``, ``--warp perspective``,
+   ``--dense``, ``--quick``) at its default iterations: rays/s above 0
+   with the script's unit string, beside phases 4, 8(a) and 10's rays/s
+   of the same steps; then ``python -m f2nerf_tpu_torch.bench --iters 10
+   --no-cache-write`` with jax, PIL and yaml unimportable: its last line
+   the script's four keys, no watchdog or cached value. (b)
+   ``graft_entry.entry()``: the flagship VALIDATE render's shapes, finite,
+   its first ``ENTRY_CHECK_RAYS`` rays on the card against the CPU as in
+   phase 7. (c) ``graft_entry.dryrun_multichip(1)`` in this process in a
+   NCCL group of one rank, then ``python -m f2nerf_tpu_torch.graft_entry
+   dryrun 2 --backend gloo`` (two gloo ranks on ``cuda:0``): the four
+   arms' OK lines (dense, occ, flagship on its refresh step, localize),
+   their losses and weights. Launches per sub-path ``entry/{default,
+   noqm,warp,dense,quick,cli,render,dry_dense,dry_occ,dry_flagship,
+   dry_localize,dry_gloo2}``.
 
 Run dedup (``encode_dedup``, on by default) runs in phases 3-5 and 10;
 after phases 3-5, and inside phase 10, it is also switched off and on in
@@ -212,7 +229,8 @@ launches by path: the warp paths under ``warp/``, the node's under
 ``node/``, the two-pass's under ``dense/``, xor's under ``xor/``, the
 multi-device paths' under ``distributed/``, data prep's under
 ``dataprep/``, the parts benches' under ``parts/``, the diagnostics'
-and ``bench_scaling``'s under ``diag/``), the
+and ``bench_scaling``'s under ``diag/``, the entry points' under
+``entry/``), the
 ``nvidia-smi`` name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits non-zero and prints no
 result.
@@ -247,14 +265,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from f2nerf_tpu_torch import bench, graft_entry
 from f2nerf_tpu_torch.apps import main as cli
 from f2nerf_tpu_torch.apps.serve import LocalizerService
+from f2nerf_tpu_torch.bench import (N_IMAGES, cameras, ring_warp_consts,
+                                    seeded_grid)
 from f2nerf_tpu_torch.convert import flatten
 from f2nerf_tpu_torch.core.cameras import rays_from_pose
 from f2nerf_tpu_torch.core.config import Config, ModelConfig
 from f2nerf_tpu_torch.data.dataset import load_dataset, save_dataset
 from f2nerf_tpu_torch.data.synthetic import (make_corridor_dataset,
-                                             make_sphere_dataset,
                                              make_textured_dataset)
 from f2nerf_tpu_torch.kernels import build, trilinear
 from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
@@ -294,9 +314,10 @@ FRAME_H, FRAME_W, RESIZE = 850, 1920, 8   # scripts/bench_localize.py
 N_REQUESTS, PARTICLES = 3, 64
 N_DIFF_REQUESTS = 3                      # mode-1 requests
 CHECK_RESIZE = 48                        # 17x40 frame for the pose check
-# bench.py's training operating point (bench.py:203-265)
-TRAIN_RAYS, N_IMAGES, CAM_HW, CAM_F = 8192, 8, 256, 200.0
-STEP0, TRAIN_STEPS, STEADY_FROM = 3072, 24, 2
+# bench.py's training operating point (f2nerf_tpu_torch/bench.py)
+TRAIN_RAYS = bench.THROUGHPUT_RAYS
+STEP0 = bench.first_step(Config())        # 3072
+TRAIN_STEPS, STEADY_FROM = 24, 2
 CHECK_RAYS = 512
 ALL_KERNELS = ("trilinear_fwd", "trilinear_bwd", "trilinear_bwd_frac")
 # the run-directory phase: Config.quality trained for RUN_STEPS steps
@@ -506,14 +527,6 @@ def warp_cfg(cfg: Config) -> Config:
         cfg.model, warp_mode="perspective"))
 
 
-def bench_warp_consts(cfg: Config, dev: torch.device) -> dict:
-    """The warp tables of ``bench.py --warp perspective``
-    (``bench.py:216-225``): built from the ring of
-    ``make_sphere_dataset(n_images=8, h=8, w=8)``."""
-    ring = make_sphere_dataset(n_images=N_IMAGES, h=8, w=8)
-    return warp_consts(ring.poses, cfg.model, dev)
-
-
 def warp_frame_inputs(seed: int, dev: torch.device,
                       cfg: Config | None = None) -> tuple:
     """The encode inputs of one full-frame 106x240 render through the
@@ -536,7 +549,7 @@ def warp_train_inputs(seed: int, dev: torch.device):
     """``train_step_inputs`` of the warp training step
     (``bench.py --warp perspective``'s point)."""
     cfg = warp_cfg(train_cfg(TRAIN_RAYS))
-    return train_step_inputs(cfg, seed, dev, bench_warp_consts(cfg, dev))
+    return train_step_inputs(cfg, seed, dev, ring_warp_consts(cfg, dev))
 
 
 def warp_kernel_phase(seed: int, dev: torch.device, kernels: list) -> None:
@@ -563,15 +576,6 @@ def warp_kernel_phase(seed: int, dev: torch.device, kernels: list) -> None:
         "warp train step", g, page_idx, lf, meta.total_pages, flush)
 
 
-def seeded_grid(cfg: Config, dev: torch.device) -> torch.Tensor:
-    """bench.py's seeded ~25%-occupied [2, G, G, G] grid."""
-    res = cfg.model.occ_grid_res
-    occ_rng = np.random.default_rng(1)
-    seeded = (occ_rng.random((res, res, res)) < 0.25).astype(np.float32) \
-        * (2.0 * occupancy.sigma_threshold(cfg.model))
-    return torch.as_tensor(np.stack([seeded, seeded]), device=dev)
-
-
 def seeded_occ_vals(cfg: Config, dev: torch.device) -> torch.Tensor:
     """The seeded grid as sampler values."""
     return occupancy.occ_values(seeded_grid(cfg, dev), cfg.model)
@@ -583,20 +587,9 @@ def train_cfg(rays: int) -> Config:
         cfg.train, pts_batch_size=rays * 512))
 
 
-def cameras(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """bench.py's cameras: identity poses, 256x256 at f = 200."""
-    poses = torch.eye(3, 4, device=dev).repeat(N_IMAGES, 1, 1)
-    intr = torch.tensor([[CAM_F, 0, CAM_HW / 2], [0, CAM_F, CAM_HW / 2],
-                         [0, 0, 1.0]], device=dev).repeat(N_IMAGES, 1, 1)
-    return poses, intr
-
-
 def batch(rng: np.random.Generator, rays: int, dev: torch.device):
-    cam = rng.integers(0, N_IMAGES, rays).astype(np.int32)
-    ij = np.stack([rng.integers(0, CAM_HW, rays),
-                   rng.integers(0, CAM_HW, rays)], -1).astype(np.int32)
-    gt = rng.random((rays, 3)).astype(np.float32)
-    return tuple(torch.as_tensor(x, device=dev) for x in (cam, ij, gt))
+    """One of bench.py's batches, on ``dev``."""
+    return bench.to_device(bench.batch_data(rng, rays), dev)
 
 
 def train_step_inputs(cfg: Config, seed: int, dev: torch.device,
@@ -1915,7 +1908,7 @@ def node_frame_check(rn, seed: int, dev: torch.device) -> tuple[dict, dict]:
 
 # -- phase 10: the dense two-pass ---------------------------------------------
 
-DENSE_RAYS = 512            # bench.py --dense: 512 rays x 1024 samples
+DENSE_RAYS = bench.DENSE_RAYS   # bench.py --dense: 512 rays x 1024 samples
 DENSE_WINDOW = 4            # steps a timing window; in turns S, T, T, S
 DENSE_BIASES = tuple(np.arange(2.0, 16.5, 0.5))   # density biases scanned
 
@@ -3779,6 +3772,143 @@ def diag_phase(seed: int, dev: torch.device, run: pathlib.Path,
     return res
 
 
+# -- phase 18: the JAX system's entry points ----------------------------------
+
+TRAIN_KERNELS = ("trilinear_fwd", "trilinear_bwd")
+# bench.py's arms, each run by bench.measure at the script's iterations,
+# and the unit each must print (bench.py:267-279)
+ENTRY_ARMS = {"default": [], "noqm": ["--no-quality-machinery"],
+              "warp": ["--warp", "perspective"], "dense": ["--dense"],
+              "quick": ["--quick"]}
+ENTRY_UNITS = {
+    "default": "rays/s/chip (fwd+bwd+adam, occ sampler, 64 samples/ray)",
+    "noqm": "rays/s/chip (fwd+bwd+adam, occ sampler, 64 samples/ray, "
+            "quality machinery off (r1 parity point))",
+    "warp": "rays/s/chip (fwd+bwd+adam, occ sampler, 64 samples/ray, "
+            "perspective warp (no run dedup))",
+    "dense": "rays/s/chip (fwd+bwd+adam, dense, 1024 samples/ray, "
+             "reference-parity point 512x1024)",
+    "quick": "rays/s/chip (tiny cfg)"}
+ENTRY_CLI = ["--iters", "10", "--no-cache-write"]
+ENTRY_CHECK_RAYS = 64      # entry()'s rays held against the CPU
+DRY_USED = {"dense": TRAIN_KERNELS, "occ": TRAIN_KERNELS,
+            "flagship": TRAIN_KERNELS,
+            "localize": ("trilinear_fwd", "trilinear_bwd_frac")}
+DRY_LINE = re.compile(r"dryrun_multichip\((\d+), (\w+)\): OK, "
+                      r"(loss|weights)=(.*)")
+
+
+def _dry_lines(lines: list, world: int) -> dict:
+    """The arms' OK lines of a dry run at ``world`` ranks."""
+    out = {}
+    for line in lines:
+        m = DRY_LINE.match(line)
+        if m and int(m[1]) == world:
+            out[m[2]] = json.loads(m[4])
+    if sorted(out) != sorted(graft_entry.ARMS):
+        raise RuntimeError(f"dryrun {world}: OK lines for {sorted(out)}")
+    return out
+
+
+def entry_phase(seed: int, dev: torch.device, root: pathlib.Path,
+                anchors: dict) -> dict:
+    """Phase 18 (module docstring). ``anchors``: phases 4, 8(a) and 10's
+    rays/s of the same steps."""
+    sub, res = {}, {}
+    for arm, argv in ENTRY_ARMS.items():
+        args = bench.parse_args(argv)
+        seen = []        # (rays/s so far, steps so far) after each chunk
+        sub[arm], (value, unit, iters) = _subpath(
+            f"entry/{arm}", TRAIN_KERNELS,
+            lambda: bench.measure(args, dev, progress=lambda v, u, n: (
+                v is not None and seen.append((v, n)))))
+        if not (value > 0 and unit == ENTRY_UNITS[arm]):
+            raise RuntimeError(f"bench {arm}: {value} {unit!r}")
+        # each chunk's own rate, from the running totals
+        rays = bench.arm_config(args).train.rays_per_step
+        ends = [n * rays / v for v, n in seen]
+        res[arm] = {"rays_per_s": value, "iters": iters, "chunk_rays_per_s": [
+            (n1 - n0) * rays / (t1 - t0) for (_, n0), (_, n1), t0, t1
+            in zip([(0, 0)] + seen[:-1], seen, [0.0] + ends[:-1], ends)]}
+    log("bench.measure rays/s per arm: " + ", ".join(
+        f"{arm} {r['rays_per_s']:.0f} (chunks "
+        f"{[round(c) for c in r['chunk_rays_per_s']]})"
+        for arm, r in res.items())
+        + "; the same steps elsewhere: " + ", ".join(
+            f"{k} {v:.0f}" for k, v in anchors.items() if v is not None))
+    env = child_env(root, root / "cli_launches.jsonl")
+    rc, lines = run_driver([sys.executable, "-m", "f2nerf_tpu_torch.bench",
+                            *ENTRY_CLI], env, "bench cli")
+    last = json.loads(lines[-1][1]) if rc == 0 and lines else {}
+    if (list(last) != ["metric", "value", "unit", "vs_baseline"]
+            or not last["value"] > 0 or last["unit"] != ENTRY_UNITS["default"]
+            or any(w in last["unit"]
+                   for w in ("watchdog", "CACHED", "exceeded"))):
+        raise RuntimeError(f"bench CLI exited {rc}, last line {lines[-1:]}")
+    res["cli"] = last
+    sub["cli"] = {"launches": child_launches(root / "cli_launches.jsonl")}
+    check_launches("entry/cli", sub["cli"]["launches"], TRAIN_KERNELS)
+
+    def render():
+        fn, args = graft_entry.entry(dev)
+        return fn, args, fn(*args)
+
+    sub["render"], (fn, args, (colors, depths)) = _subpath(
+        "entry/render", ("trilinear_fwd",), render)
+    n = args[2].shape[0]
+    if (colors.shape != (n, 3) or depths.shape != (n,)
+            or not (torch.isfinite(colors).all()
+                    and torch.isfinite(depths).all())):
+        raise RuntimeError(f"entry: shapes {colors.shape}, {depths.shape} "
+                           f"or non-finite values")
+    cpu = torch.device("cpu")
+    k = ENTRY_CHECK_RAYS
+    c_cpu, d_cpu = fn(_to(args[0], cpu), _to(args[1], cpu),
+                      args[2][:k].cpu(), args[3][:k].cpu(), args[4].cpu())
+    dc = float((colors[:k].cpu() - c_cpu).abs().max())
+    dd = float(((depths[:k].cpu() - d_cpu).abs() / (d_cpu.abs() + 1e-3)).max())
+    log(f"entry: OK {[list(colors.shape), list(depths.shape)]}; {k} rays "
+        f"card vs CPU: max |d color| {dc:.3e}, max rel d depth {dd:.3e}")
+    if not (dc <= 1e-3 and dd <= 1e-3):
+        raise RuntimeError("entry's render on the card disagrees with the CPU")
+    res["render"] = {"rays": n, "max_color_err": dc, "max_rel_depth_err": dd}
+    del fn, args, colors, depths
+
+    # dryrun_multichip(1) in this process: a NCCL group of one rank
+    dist_env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    dry1 = {}
+    with mock.patch.dict(os.environ, dist_env):
+        try:
+            for tag in graft_entry.ARMS:
+                sub[f"dry_{tag}"], out = _subpath(
+                    f"entry/dry_{tag}", DRY_USED[tag],
+                    lambda: graft_entry.dryrun_multichip(1, arms=(tag,)))
+                dry1[tag] = out[tag]
+            backend = dist.get_backend()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    if backend != "nccl":
+        raise RuntimeError(f"dryrun 1 ran on {backend}")
+    res["dryrun_1_nccl"] = {k: (v.tolist() if isinstance(v, np.ndarray)
+                                else v) for k, v in dry1.items()}
+    env = child_env(root, root / "dry_launches.jsonl")
+    t0 = time.perf_counter()
+    rc, lines = run_driver([sys.executable, "-m", "f2nerf_tpu_torch.graft_entry",
+                            "dryrun", "2", "--backend", "gloo"], env,
+                           "dryrun 2")
+    if rc != 0:
+        raise RuntimeError(f"dryrun 2 --backend gloo exited {rc}")
+    res["dryrun_2_gloo"] = _dry_lines([x for _, x in lines], 2)
+    res["dryrun_2_gloo"]["wall_s"] = time.perf_counter() - t0
+    sub["dry_gloo2"] = {"launches": child_launches(root / "dry_launches.jsonl")}
+    log(f"dryrun 1 (NCCL, in process): {res['dryrun_1_nccl']}; dryrun 2 (two "
+        f"gloo ranks on cuda:0): {res['dryrun_2_gloo']}; launches of its "
+        f"ranks {sub['dry_gloo2']['launches']}")
+    return {"subpaths": sub, **res}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3857,7 +3987,7 @@ def main() -> int:
     wcfg = warp_cfg(train_cfg(TRAIN_RAYS))
     paths["warp/training"] = phase(
         "warp training", training_phase, wcfg, args.seed, dev,
-        consts=bench_warp_consts(wcfg, dev), path="warp/training")
+        consts=ring_warp_consts(wcfg, dev), path="warp/training")
     with tempfile.TemporaryDirectory() as tmp:
         work = pathlib.Path(tmp)
         for prefix, warp in (("", False), ("warp/", True)):
@@ -3890,6 +4020,17 @@ def main() -> int:
                           kernels)
     add_paths("dense/", runs["dense"])
     paths["xor/training"] = phase("xor training", xor_phase, args.seed, dev)
+    dense_rs = (runs["dense"] or {}).get("timing", {}).get("RS")
+    anchors = {
+        "phase 4": (paths["training"] or {}).get("rays_per_s"),
+        "phase 8(a) warp": (paths["warp/training"] or {}).get("rays_per_s"),
+        # bench.py --dense runs the single pass (dense_two_pass is off)
+        "phase 10 dense": (DENSE_RAYS / dense_rs["single_pass"]["mean_ms"]
+                           * 1e3 if dense_rs else None)}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["entry"] = phase("entry points", entry_phase, args.seed, dev,
+                              pathlib.Path(tmp), anchors)
+        add_paths("entry/", runs["entry"])
     corridor = make_corridor_dataset(seed=args.seed)
     ccfg = warp_cfg(cfg)
     cconsts = warp_consts(corridor.poses, ccfg.model, dev)

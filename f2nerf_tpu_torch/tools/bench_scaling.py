@@ -25,11 +25,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
-import socket
-import subprocess
-import sys
-import tempfile
 import time
 
 import numpy as np
@@ -42,7 +37,7 @@ from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.parallel.mesh import (DataMesh,
                                             maybe_initialize_distributed,
                                             replicate, shard_batch)
-from f2nerf_tpu_torch.tools.common import add_device_flag
+from f2nerf_tpu_torch.tools.common import add_device_flag, launch_ranks
 from f2nerf_tpu_torch.train.optim import make_optimizer
 from f2nerf_tpu_torch.train.step import make_train_step
 
@@ -142,48 +137,18 @@ def summary(results: dict[int, float]) -> dict:
 
 def _launch_multiprocess(args) -> None:
     """Start ``args.multiprocess`` gloo ranks of this tool on the CPU
-    (torchrun's environment, a free local port) and relay rank 0's
-    output; raises with the failing ranks' error output."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (repo, env.get("PYTHONPATH")) if p)
-    env.setdefault("OMP_NUM_THREADS", "1")
-    env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
-               WORLD_SIZE=str(args.multiprocess))
-    base = [sys.executable, "-m", "f2nerf_tpu_torch.tools.bench_scaling",
-            "--multiprocess", str(args.multiprocess), "--port", str(port),
-            "--iters", str(args.iters), "--mode", args.mode,
-            "--device", "cpu"]
+    and relay rank 0's output (``common.launch_ranks``)."""
+    base = ["--multiprocess", str(args.multiprocess), "--iters",
+            str(args.iters), "--mode", args.mode, "--device", "cpu"]
     if args.quick:
         base.append("--quick")
     if args.rays:
         base += ["--rays", str(args.rays)]
     if args.counts:
         base += ["--counts", args.counts]
-    with tempfile.TemporaryDirectory() as tmp:
-        errs = [open(os.path.join(tmp, f"rank{i}.err"), "w+")
-                for i in range(args.multiprocess)]
-        procs = [subprocess.Popen(
-            base + ["--worker", str(i)],
-            env={**env, "RANK": str(i), "LOCAL_RANK": str(i)},
-            stdout=subprocess.PIPE if i == 0 else subprocess.DEVNULL,
-            stderr=errs[i], text=True) for i in range(args.multiprocess)]
-        for line in procs[0].stdout:
-            print(line, end="", flush=True)
-        rc = [p.wait() for p in procs]
-        tails = []
-        for i, f in enumerate(errs):
-            f.seek(0)
-            if rc[i]:
-                tails.append(f"rank {i}:\n{f.read()[-2000:]}")
-            f.close()
-    if any(rc):
-        raise SystemExit(f"worker exit codes {rc}\n" + "\n".join(tails))
+    launch_ranks("f2nerf_tpu_torch.tools.bench_scaling", args.multiprocess,
+                 lambda r, port: base + ["--port", str(port),
+                                         "--worker", str(r)])
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -1,12 +1,18 @@
 """Pieces the tools share: the synthetic scenes by name, the holdout
 split, the ``--device`` flag, a quality run's checkpoint restored (and a
-localizer over it), and the parts benches' timer."""
+localizer over it), the parts benches' timer, and the launcher of local
+ranks."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import pathlib
+import socket
+import subprocess
+import sys
+import tempfile
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -185,3 +191,41 @@ def part_line(label: str, t: dict, suffix: str = "", width: int = 0) -> str:
     card's busy time beside it."""
     return (f"{label.ljust(width)} {t['wall_ms']:8.2f} ms{suffix} "
             f"({device_text(t)})")
+
+
+def launch_ranks(module: str, n: int, rank_argv) -> None:
+    """Start ``n`` ranks of ``python -m module`` on this host in
+    torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, a
+    free port on localhost; the repo on ``PYTHONPATH``), rank r with the
+    arguments ``rank_argv(r, port)``; relay rank 0's output as it comes.
+    Raises ``SystemExit`` with the failing ranks' error output."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (repo, env.get("PYTHONPATH")) if p)
+    env.setdefault("OMP_NUM_THREADS", "1")
+    env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE=str(n))
+    with tempfile.TemporaryDirectory() as tmp:
+        errs = [open(os.path.join(tmp, f"rank{i}.err"), "w+")
+                for i in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", module, *rank_argv(i, port)],
+            env={**env, "RANK": str(i), "LOCAL_RANK": str(i)},
+            stdout=subprocess.PIPE if i == 0 else subprocess.DEVNULL,
+            stderr=errs[i], text=True) for i in range(n)]
+        for line in procs[0].stdout:
+            print(line, end="", flush=True)
+        rc = [p.wait() for p in procs]
+        tails = []
+        for i, f in enumerate(errs):
+            f.seek(0)
+            if rc[i]:
+                tails.append(f"rank {i}:\n{f.read()[-2000:]}")
+            f.close()
+    if any(rc):
+        raise SystemExit(f"worker exit codes {rc}\n" + "\n".join(tails))

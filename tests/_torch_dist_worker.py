@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from f2nerf_tpu_torch import graft_entry
 from f2nerf_tpu_torch.convert import flatten, tree_from_numpy, unflatten
 from f2nerf_tpu_torch.core.config import Config
 from f2nerf_tpu_torch.data.dataset import load_dataset
@@ -227,9 +228,28 @@ def scenario_helpers(mesh, configs, inp, in_dir, out_dir) -> dict:
             "helpers/raised": np.bool_(raised)}
 
 
+def scenario_dryrun(mesh, configs, inp, in_dir, out_dir) -> dict:
+    """The dry run's dense and occupancy arms (``graft_entry``) on JAX's
+    params with the JAX step's draws, and its localizer arm on JAX's
+    params: the losses and the weights."""
+    out = {}
+    for tag in ("dense", "occ"):
+        cfg, batch, step = graft_entry.arm_config(tag, mesh.size)
+        params = tree_from_numpy(
+            unflatten(_group(inp, f"params/dry_{tag}/")), "cpu")
+        out[f"dry/{tag}/loss"] = np.float64(graft_entry._dryrun_one(
+            mesh, cfg, batch, tag, step, params=params,
+            noise=_noise(inp, f"dry_{tag}", step)))
+    params = tree_from_numpy(unflatten(_group(inp, "params/dry_localize/")),
+                             "cpu")
+    out["dry/localize/weights"] = graft_entry._dryrun_localize(mesh,
+                                                               params=params)
+    return out
+
+
 SCENARIOS = {"steps": scenario_steps, "render": scenario_render,
              "localize": scenario_localize, "trainer": scenario_trainer,
-             "helpers": scenario_helpers}
+             "helpers": scenario_helpers, "dryrun": scenario_dryrun}
 
 
 def main() -> int:

@@ -62,9 +62,9 @@ def test_port_module_list_is_complete():
                  "tools.bench_step_parts", "tools.bench_encode_parts",
                  "tools.bench_dense_parts", "tools.bench_dense_trained",
                  "tools.diag_holdout", "tools.eval_appearance_ab",
-                 "tools.bench_scaling"):
+                 "tools.bench_scaling", "bench", "graft_entry"):
         assert f"f2nerf_tpu_torch.{name}" in PORT_MODULES, name
-    assert len(PORT_MODULES) >= 76
+    assert len(PORT_MODULES) >= 78
 
 
 @pytest.fixture(scope="module")

@@ -33,9 +33,16 @@ Tolerances:
   Generator), weights atol 1e-6, the pose gradient atol 1e-5 x its
   largest entry and the loss rtol 1e-6, the pose after one Adam step
   atol 1e-7 (the step is lr x the normalized gradient, lr 1e-3).
+* ``graft_entry``'s dry run at k = 2 against ``__graft_entry__``'s
+  ``_dryrun_one`` and ``_dryrun_localize`` on JAX's 2-device mesh (JAX's
+  params, the JAX step's draws): the dense and occupancy arms' losses
+  atol ``DRY_LOSS_TOL``, the localizer's weights atol ``DRY_WEIGHT_TOL``.
+  The flagship arm (``Config()``) runs on the card only (JAX marks its
+  own full dry run slow).
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
 import pathlib
@@ -54,10 +61,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 import _torch_dist_worker as worker
 import test_parallel as tp
 import test_torch_train as tt
+from f2nerf_tpu.core.config import Config as JConfig
+from f2nerf_tpu.localize.localizer import Localizer as JLocalizer
 from f2nerf_tpu.models import occupancy as jocc
 from f2nerf_tpu.models import renderer as jrend
 from f2nerf_tpu.train.optim import make_optimizer as jmake_optimizer
 from f2nerf_tpu.train.step import make_train_step as jmake_train_step
+from f2nerf_tpu_torch import graft_entry
 from f2nerf_tpu_torch.convert import flatten, tree_from_numpy
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.data.dataset import load_dataset, save_dataset
@@ -79,7 +89,7 @@ STEPS = {"tiny": (0, 3), "blocks": (0, 3), "occ": (600, 2), "ratio": (600, 2),
 STEPS_K = {1: ["tiny", "blocks", "occ", "ratio", "two_pass"],
            2: list(STEPS), 4: ["blocks"]}
 SCENARIOS = {1: "helpers,steps,render,localize,trainer",
-             2: "helpers,steps,render,localize,trainer",
+             2: "helpers,steps,render,localize,trainer,dryrun",
              4: "helpers,steps,render"}
 WORKER_TIMEOUT_S = 240
 # The occupancy scenes' seeds. The port against itself (k = 2 vs k = 1)
@@ -93,6 +103,75 @@ OCC_SEED, OCC_SEED_JAX = 1, 2
 # the JAX-side scene of each key the JAX test names
 JAX_KEY = {"tiny": "tiny", "occ": "occ_jax", "ratio": "ratio_jax",
            "two_pass": "two_pass"}
+DRY_LOSS_TOL = 1e-5
+DRY_WEIGHT_TOL = 1e-4
+
+
+def _graft_script():
+    spec = importlib.util.spec_from_file_location(
+        "jax_graft_entry", REPO / "__graft_entry__.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_dry_arms(script, n: int) -> dict:
+    """The arms the script's ``dryrun_multichip(n)`` runs, recorded without
+    running them: {tag: (mesh, cfg, batch, step)}."""
+    arms = {}
+
+    def one(mesh, cfg, batch, n_devices, tag, step=0):
+        arms[tag] = (mesh, cfg, batch, step)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(script, "_dryrun_one", one)
+        mp.setattr(script, "_dryrun_localize",
+                   lambda mesh, n_devices: arms.setdefault(
+                       "localize", (mesh, None, None, None)))
+        script.dryrun_multichip(n)
+    return arms
+
+
+def _dry_localize_cfg():
+    """The script's localizer arm's config (``_dryrun_localize``)."""
+    cfg = JConfig.tiny()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, n_samples=16))
+
+
+def _jax_dry_run(script, arms: dict) -> dict:
+    """The script's dense and occupancy arms and its localizer arm on the
+    recorded 2-device mesh: the losses unrounded (its step's metrics
+    read through a wrapped ``jax.jit``) and the particle weights."""
+    out, losses, weights = {}, [], []
+    jit = jax.jit
+    evaluate = JLocalizer.evaluate_poses
+
+    def recording_jit(fn, **kw):
+        f = jit(fn, **kw)
+
+        def call(*a, **kw):
+            res = f(*a, **kw)
+            if isinstance(res, tuple) and hasattr(res[-1], "loss"):
+                losses.append(float(res[-1].loss))
+            return res
+        return call
+
+    def recording_evaluate(self, *a, **kw):
+        res = evaluate(self, *a, **kw)
+        weights.append(np.asarray(res))
+        return res
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", recording_jit)
+        mp.setattr(JLocalizer, "evaluate_poses", recording_evaluate)
+        for tag in ("dense", "occ"):
+            mesh, cfg, batch, step = arms[tag]
+            script._dryrun_one(mesh, cfg, batch, 2, tag, step=step)
+            out[tag] = losses.pop()
+        script._dryrun_localize(arms["localize"][0], 2)
+        out["localize"] = weights.pop()
+    return out
 
 
 def _free_port() -> int:
@@ -240,6 +319,21 @@ def _write_inputs(path: pathlib.Path, cfgs: dict) -> dict:
                                              tcfg.model), device="cpu")
     arrays["loc/image"] = loc.render_image(target).numpy()
     arrays["loc/pose0"] = pose0
+    # the dry run: the script's params (renderer.init at key 0) and the
+    # JAX step's draws of each training arm
+    side["dry_arms"] = _jax_dry_arms(_graft_script(), 2)
+    for tag in ("dense", "occ"):
+        _, jcfg, batch, step = side["dry_arms"][tag]
+        params, _ = jrend.init(jax.random.key(0), jcfg.model, 4)
+        arrays.update({f"params/dry_{tag}/{n}": np.asarray(v)
+                       for n, v in flatten(params).items()})
+        noise = tt.jax_noise(jcfg, step, batch)
+        for name, x in noise._asdict().items():
+            if x is not None:
+                arrays[f"noise/dry_{tag}/{step}/{name}"] = x.numpy()
+    params, _ = jrend.init(jax.random.key(0), _dry_localize_cfg().model, 2)
+    arrays.update({f"params/dry_localize/{n}": np.asarray(v)
+                   for n, v in flatten(params).items()})
     np.savez(path / "inputs.npz", **arrays)
     configs = {k: dataclasses.asdict(c) for k, c in cfgs.items()}
     configs["two_pass"]["model"]["dense_two_pass"] = True
@@ -315,6 +409,7 @@ def world(tmp_path_factory, tiny_cfg, occ_cfg):
                                             w, cfgs["tiny"].model,
                                             chunk=chunk)
             jrender[name] = (np.asarray(rgb), np.asarray(depth))
+        jdry = _jax_dry_run(_graft_script(), side["dry_arms"])
     finally:
         for k, ps in procs.items():
             _wait(ps, f"world size {k}")
@@ -324,7 +419,8 @@ def world(tmp_path_factory, tiny_cfg, occ_cfg):
         for r in range(k):
             with np.load(root / f"k{k}_rank{r}.npz") as z:
                 out[k, r] = {n: z[n] for n in z.files}
-    return {"out": out, "jax": jref, "jrender": jrender, "cfgs": cfgs,
+    return {"out": out, "jax": jref, "jrender": jrender, "jdry": jdry,
+            "cfgs": cfgs,
             "side": side, "root": root, "cli_run": run, "data": data}
 
 
@@ -683,3 +779,34 @@ def test_cli_torchrun_train(world):
     loc = Localizer.from_checkpoint(run, device="cpu")
     img = loc.render_image(load_dataset(world["data"]).poses[0])
     assert img.shape == (16, 16, 3) and torch.isfinite(img).all()
+
+
+def test_dryrun_arms_match_the_script():
+    """``graft_entry.arm_config`` against the arms the script runs, the
+    flagship's refresh step included."""
+    arms = _jax_dry_arms(_graft_script(), 2)
+    assert sorted(arms) == sorted(graft_entry.ARMS)
+    for tag in ("dense", "occ", "flagship"):
+        _, jcfg, jbatch, jstep = arms[tag]
+        cfg, batch, step = graft_entry.arm_config(tag, 2)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), tag
+        assert (batch, step) == (jbatch, jstep), tag
+    assert graft_entry.arm_config("flagship", 2)[2] == 2064
+    assert graft_entry.arm_config("flagship", 2)[2] % 16 == 0
+
+
+@pytest.mark.parametrize("tag", ["dense", "occ"])
+def test_dryrun_k2_vs_jax_mesh(world, tag):
+    for r in range(2):
+        loss = float(world["out"][2, r][f"dry/{tag}/loss"])
+        assert np.isfinite(loss)
+        assert abs(loss - world["jdry"][tag]) <= DRY_LOSS_TOL, (
+            r, loss, world["jdry"][tag])
+
+
+def test_dryrun_localize_k2_vs_jax_mesh(world):
+    for r in range(2):
+        w = world["out"][2, r]["dry/localize/weights"]
+        np.testing.assert_allclose(w, world["jdry"]["localize"],
+                                   atol=DRY_WEIGHT_TOL, rtol=0)
+        assert abs(float(w.sum()) - 1.0) < 1e-3

@@ -858,6 +858,15 @@ tool("localize_envelope", "@/run", *flags, "--holdout_every", "3",
      "--device", "cpu")
 tool("bench_localize", "--resize", "128", "--particles", "2", "--device",
      "cpu")
+# the JAX system's two entry points: bench.py's CLI, __graft_entry__'s dry
+# run on one rank (its tiny arms: the flagship is Config()'s full table)
+sys.argv = ["bench", "--quick", "--iters", "2", "--device", "cpu"]
+runpy.run_module("f2nerf_tpu_torch.bench", run_name="__main__")
+rcs["bench"] = 0
+from f2nerf_tpu_torch import graft_entry
+graft_entry.dryrun_multichip(1, device="cpu",
+                             arms=("dense", "occ", "localize"))
+rcs["graft_entry"] = 0
 # the example's model cut to two levels (its own config is held against
 # the JAX example in test_train_synthetic_config): main, not runpy, so
 # that the cut applies
