@@ -6,8 +6,9 @@
 Phases (each passes or raises; the script exits 0 only if all pass):
 
 1. Device and build: print the card, its power limit, and build every
-   CUDA kernel under f2nerf_tpu_torch/kernels/csrc (one nvcc per
-   source, all started together).
+   CUDA kernel under f2nerf_tpu_torch/kernels/csrc and the host image
+   codec (f2nerf_tpu_torch/utils/csrc/image_codec.cpp; one compiler
+   process per source, all started together).
 2. Kernels at full width, each held against its plain PyTorch version
    and timed with CUDA events (and each once at C = 3, which the wrappers
    run zero-padded to C = 4, at a small width): ``trilinear_fwd`` on the inputs of one
@@ -148,11 +149,16 @@ Phases (each passes or raises; the script exits 0 only if all pass):
 
 15. Data prep (``dataprep_phase``), with jax, PIL and yaml unimportable
    in process and, through a ``sitecustomize`` on ``PYTHONPATH``, in the
-   drivers' child processes: (a) every JPEG fixture of
-   ``tests/torch_fixtures/jpeg`` decoded to its stored PIL decode
-   exactly, and the decoder's host time in ms per megapixel on the
-   largest fixture and on a 1920x1080 frame tiled from one
-   (``tile_jpeg``); (b) a ``.db3`` bag built with the port's
+   drivers' child processes: (a) every fixture of
+   ``tests/torch_fixtures/jpeg`` and ``tests/torch_fixtures/codec``
+   (baseline and progressive JPEGs; 16-bit, sub-byte, palette and Adam7
+   PNGs) decoded by the compiled codec behind ``read_image`` to its
+   stored PIL decode exactly, and to the plain numpy decoders' pixels
+   wherever they read the file; the host time of the codec and of the
+   plain decoders, in ms and ms per megapixel, on three 1920x1080
+   frames: a baseline JPEG and a progressive JPEG tiled from fixtures
+   (``tile_jpeg``) and a PNG with Paeth- and Sub-filtered rows
+   (``filtered_png``); (b) a ``.db3`` bag built with the port's
    ``rosbag_reader`` from ``make_textured_dataset()`` (PNG
    ``CompressedImage`` views on camera0, the world poses as pose messages
    at the views' stamps plus one before and one after, a zero
@@ -259,6 +265,7 @@ import threading
 import time
 import traceback
 import types
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -3077,53 +3084,111 @@ def tools_phase(seed: int, dev: torch.device, root: pathlib.Path) -> dict:
 # -- phase 15: data prep ---------------------------------------------------
 
 
+_SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
+
+
+def _scan_grid(sos: bytes, sof: bytes, height: int, width: int
+               ) -> tuple[int, int]:
+    """(columns, rows) of the MCUs of the scan whose SOS segment is
+    ``sos`` in a frame (SOF segment ``sof``) of ``height`` x ``width``:
+    whole MCUs where the scan interleaves components, else its
+    component's blocks."""
+    comps = {sof[10 + 3 * i]: (sof[11 + 3 * i] >> 4, sof[11 + 3 * i] & 15)
+             for i in range(sof[9])}
+    hmax = max(h for h, _ in comps.values())
+    vmax = max(v for _, v in comps.values())
+    if sos[4] > 1:
+        return -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    h, v = comps[sos[5]]
+    return (-(-(-(-width * h // hmax)) // 8),
+            -(-(-(-height * v // vmax)) // 8))
+
+
 def tile_jpeg(buf: bytes, height: int, width: int) -> bytes:
     """A ``height`` x ``width`` JPEG made of the MCUs of ``buf`` tiled
     across it. ``buf`` must restart at every MCU (DRI of 1), so that each
     MCU's entropy-coded data stands alone (byte-aligned, DC predictors
-    reset) and any sequence of them, with RST0-7 between, is a valid
-    scan: a camera-sized frame to time the decoder on, made without an
-    encoder."""
-    head, pos = [buf[:2]], 2
+    and EOB runs reset) and any sequence of them, with RST0-7 between, is
+    a valid scan. A progressive ``buf`` is tiled scan by scan (the MCU of
+    a one-component scan is one block). A camera-sized frame to time the
+    decoders on, made without an encoder."""
+    out, pos = [buf[:2]], 2
     restart, sof = None, None
-    while True:
+    while buf[pos + 1] != 0xD9:
         marker = buf[pos + 1]
         (n,) = struct.unpack(">H", buf[pos + 2:pos + 4])
         seg = buf[pos:pos + 2 + n]
-        if marker in (0xC0, 0xC1):
+        pos += 2 + n
+        if marker in (0xC0, 0xC1, 0xC2):
             sof = seg
             seg = seg[:5] + struct.pack(">HH", height, width) + seg[9:]
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", seg[4:6])
-        head.append(seg)
-        pos += 2 + n
-        if marker == 0xDA:
-            break
-    if restart != 1 or sof is None or sof[9] != 3:
-        raise ValueError("tile_jpeg needs a 3-component JPEG that restarts "
-                         "at every MCU")
-    src_h, src_w = struct.unpack(">HH", sof[5:9])
-    hmax = max(sof[11 + 3 * i] >> 4 for i in range(3))
-    vmax = max(sof[11 + 3 * i] & 15 for i in range(3))
-    sx, sy = -(-src_w // (8 * hmax)), -(-src_h // (8 * vmax))
-    mcus = re.split(rb"\xff[\xd0-\xd7]", buf[pos:buf.rindex(b"\xff\xd9")])
-    if len(mcus) != sx * sy:
-        raise ValueError(f"{len(mcus)} restart intervals for {sx * sy} MCUs")
-    nx, ny = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-    body = []
-    for i in range(nx * ny):
-        r, c = divmod(i, nx)
-        if i:
-            body.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
-        body.append(mcus[(r % sy) * sx + c % sx])
-    return b"".join(head) + b"".join(body) + b"\xff\xd9"
+        if marker != 0xDA:
+            out.append(seg)
+            continue
+        if restart != 1 or sof is None or sof[9] != 3:
+            raise ValueError("tile_jpeg needs a 3-component JPEG that "
+                             "restarts at every MCU")
+        src_h, src_w = struct.unpack(">HH", sof[5:9])
+        sx, sy = _scan_grid(seg, sof, src_h, src_w)
+        nx, ny = _scan_grid(seg, sof, height, width)
+        end = _SCAN_END.search(buf, pos).start()
+        mcus = re.split(rb"\xff[\xd0-\xd7]", buf[pos:end])
+        if len(mcus) != sx * sy:
+            raise ValueError(f"{len(mcus)} restart intervals for "
+                             f"{sx * sy} MCUs")
+        out.append(seg)
+        for i in range(nx * ny):
+            r, c = divmod(i, nx)
+            if i:
+                out.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+            out.append(mcus[(r % sy) * sx + c % sx])
+        pos = end
+    return b"".join(out) + b"\xff\xd9"
+
+
+def filtered_png(rgb: np.ndarray, filters: tuple = (4, 1)) -> bytes:
+    """8-bit RGB PNG bytes of uint8 [H, W, 3], row r filtered by
+    ``filters[r % len(filters)]`` (0-4: none, Sub, Up, Average, Paeth), as
+    an encoder with adaptive filters writes them: the frame the host
+    times the PNG decoders on."""
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, 3 * w).astype(np.int16)
+    rows, prev = [], np.zeros(3 * w, np.int16)
+    for r in range(h):
+        f = filters[r % len(filters)]
+        cur = x[r]
+        a = np.concatenate([np.zeros(3, np.int16), cur[:-3]])
+        c = np.concatenate([np.zeros(3, np.int16), prev[:-3]])
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        pred = (0, a, prev, (a + prev) >> 1, paeth)[f]
+        rows.append(bytes([f]) + ((cur - pred) & 0xFF).astype(
+            np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows), 6))
+            + chunk(b"IEND", b""))
 
 
 JPEG_FIXTURES = (pathlib.Path(__file__).resolve().parent / "tests"
                  / "torch_fixtures" / "jpeg")
-TILE_SOURCE = "ycc420_rst1_48x32.jpg"    # restarts at every MCU
+CODEC_FIXTURES = JPEG_FIXTURES.parent / "codec"
+# restart at every MCU: the tiled frames' sources
+TILE_SOURCE = JPEG_FIXTURES / "ycc420_rst1_48x32.jpg"
+PROGRESSIVE_TILE_SOURCE = CODEC_FIXTURES / "prog_ycc420_rst1_48x32.jpg"
 CAMERA_FRAME = (1080, 1920)              # an Autoware camera's frame
-DECODE_REPS = 3
+DECODE_REPS = 3                          # the plain decoders: ~1 s a frame
+CODEC_REPS = 10
 BAG_T0, BAG_DT = 100.0, 0.1              # the views' stamps (s)
 POSE_TOPIC = "/localization/pose_estimator/pose_with_covariance"
 CAMERA_TOPIC = "/sensing/camera/camera{}/image_rect_color/compressed"
@@ -3169,49 +3234,86 @@ atexit.register(_launches)
 ''' % (ALL_KERNELS,)
 
 
-def jpeg_check() -> dict:
-    """Phase 15a: every committed JPEG fixture decodes to its stored PIL
-    decode, exactly; the decoder's host time in ms per megapixel on the
-    largest fixture and on a camera-sized frame tiled from one."""
-    from f2nerf_tpu_torch.utils.image_io import decode_jpeg
+def _median_ms(fn, data: bytes, reps: int) -> tuple[float, np.ndarray]:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
 
-    expected = np.load(JPEG_FIXTURES / "expected.npz")
-    names = sorted(p.name for p in JPEG_FIXTURES.glob("*.jpg"))
-    if sorted(expected.files) != names or not names:
-        raise RuntimeError(f"fixtures {names} vs decodes {expected.files}")
-    for name in names:
-        got = decode_jpeg((JPEG_FIXTURES / name).read_bytes())
-        if not np.array_equal(got, expected[name]):
-            off = np.abs(got.astype(int) - expected[name]).max()
-            raise RuntimeError(f"{name}: decode differs from PIL's by up "
-                               f"to {off}")
 
-    def ms_per_mp(data: bytes, shape: tuple) -> dict:
-        times = []
-        for _ in range(DECODE_REPS):
-            t0 = time.perf_counter()
-            out = decode_jpeg(data)
-            times.append((time.perf_counter() - t0) * 1e3)
-        if out.shape != (*shape, 3):
-            raise RuntimeError(f"decoded {out.shape}, expected {shape}")
-        mp = shape[0] * shape[1] / 1e6
-        return {"ms": float(np.median(times)), "bytes": len(data),
-                "ms_per_mp": float(np.median(times)) / mp}
+def codec_check() -> dict:
+    """Phase 15a: every committed fixture decodes by the compiled codec
+    (``decode_image``) to its stored PIL decode, exactly, and to the
+    plain decoders' pixels wherever they read the file; the codec's and
+    the plain decoders' host times on three camera-sized frames."""
+    from f2nerf_tpu_torch.utils.image_io import (decode_image, decode_jpeg,
+                                                 decode_png)
 
-    largest = max(names, key=lambda n: expected[n].shape[0]
-                  * expected[n].shape[1])
-    res = {"fixtures": names, "largest": largest,
-           "fixture": ms_per_mp((JPEG_FIXTURES / largest).read_bytes(),
-                                expected[largest].shape[:2]),
-           "frame": ms_per_mp(tile_jpeg((JPEG_FIXTURES / TILE_SOURCE)
-                                        .read_bytes(), *CAMERA_FRAME),
-                              CAMERA_FRAME)}
-    log(f"JPEG: {len(names)} fixtures equal their PIL decodes; decoder on "
-        f"the host: {largest} {res['fixture']['ms']:.2f} ms "
-        f"({res['fixture']['ms_per_mp']:.0f} ms/MP), a {CAMERA_FRAME[1]}x"
-        f"{CAMERA_FRAME[0]} frame tiled from {TILE_SOURCE} "
-        f"({res['frame']['bytes']} bytes) {res['frame']['ms']:.0f} ms "
-        f"({res['frame']['ms_per_mp']:.0f} ms/MP)")
+    def plain(data: bytes):
+        return decode_png if data[:4] == b"\x89PNG" else decode_jpeg
+
+    n_fixtures = n_plain = 0
+    for folder in (JPEG_FIXTURES, CODEC_FIXTURES):
+        expected = np.load(folder / "expected.npz")
+        names = sorted(p.name for p in folder.iterdir()
+                       if p.suffix in (".jpg", ".png"))
+        if sorted(expected.files) != names or not names:
+            raise RuntimeError(f"fixtures {names} vs decodes "
+                               f"{expected.files}")
+        for name in names:
+            data = (folder / name).read_bytes()
+            got = decode_image(data)
+            if not np.array_equal(got, expected[name]):
+                off = np.abs(got.astype(int) - expected[name]).max()
+                raise RuntimeError(f"{name}: the codec differs from PIL's "
+                                   f"decode by up to {off}")
+            try:
+                ref = plain(data)(data)
+            except ValueError:          # a kind the plain decoder lacks
+                ref = None
+            if ref is not None and not np.array_equal(got, ref):
+                raise RuntimeError(f"{name}: the codec differs from the "
+                                   f"plain decoder")
+            n_fixtures += 1
+            n_plain += ref is not None
+    jpeg = tile_jpeg(TILE_SOURCE.read_bytes(), *CAMERA_FRAME)
+    frame = decode_image(jpeg)
+    frames = {"jpeg": jpeg,
+              "jpeg_progressive": tile_jpeg(
+                  PROGRESSIVE_TILE_SOURCE.read_bytes(), *CAMERA_FRAME),
+              "png_paeth_sub": filtered_png(frame)}
+    mp = CAMERA_FRAME[0] * CAMERA_FRAME[1] / 1e6
+    res = {"fixtures": n_fixtures, "plain_read": n_plain, "frames": {}}
+    for name, data in frames.items():
+        codec_ms, got = _median_ms(decode_image, data, CODEC_REPS)
+        if got.shape != (*CAMERA_FRAME, 3):
+            raise RuntimeError(f"{name}: decoded {got.shape}")
+        row = {"bytes": len(data), "codec_ms": codec_ms,
+               "codec_ms_per_mp": codec_ms / mp}
+        try:
+            plain_ms, ref = _median_ms(plain(data), data, DECODE_REPS)
+        except ValueError:              # progressive: the codec only
+            plain_ms, ref = None, None
+        if ref is not None:
+            if not np.array_equal(got, ref):
+                raise RuntimeError(f"{name}: the codec differs from the "
+                                   f"plain decoder")
+            row.update(plain_ms=plain_ms, plain_ms_per_mp=plain_ms / mp,
+                       speedup=plain_ms / codec_ms)
+        if name.startswith("png") and not np.array_equal(got, frame):
+            raise RuntimeError("the filtered PNG does not decode to the "
+                               "frame it was written from")
+        res["frames"][name] = row
+    log(f"image codec: {n_fixtures} fixtures equal their PIL decodes ("
+        f"{n_plain} also the plain decoders'); host ms on a "
+        f"{CAMERA_FRAME[1]}x{CAMERA_FRAME[0]} frame, codec | plain: " +
+        "; ".join(f"{k} ({v['bytes']} bytes) {v['codec_ms']:.2f} "
+                  f"({v['codec_ms_per_mp']:.2f} ms/MP) | "
+                  + (f"{v['plain_ms']:.1f} ({v['speedup']:.1f}x)"
+                     if "plain_ms" in v else "n/a")
+                  for k, v in res["frames"].items()))
     return res
 
 
@@ -3392,7 +3494,7 @@ def dataprep_phase(seed: int, dev: torch.device, root: pathlib.Path,
     root.mkdir(parents=True, exist_ok=True)
     res, sub = {}, {}
     with unimportable("jax", "PIL", "yaml"):
-        res["jpeg"] = jpeg_check()
+        res["codec"] = codec_check()
         # b, c: the bags, extraction and conversion
         ds = make_textured_dataset(seed=seed)
         views, world = scene_bag(ds, root / "scene.db3")
@@ -3932,8 +4034,9 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    secs = build.build_all()
-    log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s")
+    secs = build.build_all(build.kernel_names() + list(build.HOST_SOURCES))
+    log(f"built {sorted(secs)} in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{n} {t:.1f} s" for n, t in sorted(secs.items())) + ")")
     for name in secs:
         # each kernel instance's mangled name, then its registers, spills
         # and shared memory

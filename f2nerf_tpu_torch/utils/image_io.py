@@ -2,34 +2,50 @@
 and resize (port of ``f2nerf_tpu/utils/image_io.py``).
 
 The JAX package reads, writes and resizes with PIL; PIL is not installed
-beside the port on the machine with the card. So PNG is coded here on
-``zlib`` + numpy, JPEG is decoded in numpy, and the resize is the same
-operation in PyTorch.
+beside the port on the machine with the card. So images are decoded by
+the port's own compiled codec (``csrc/image_codec.cpp``), PNG is written
+on ``zlib`` + numpy, and the resize is the same operation in PyTorch.
 
+* :func:`read_image` (:func:`decode_image` on the file's bytes) picks the
+  format by the file's magic bytes, not its extension, and decodes with
+  the codec only: the C++ library is built at first use by the system's
+  C++ compiler (``kernels/build.py``), and where it cannot be built the
+  call raises with the compiler's log. Its pixels are PIL's
+  ``convert("RGB")`` exactly:
+
+  - JPEG: baseline, extended-sequential and progressive Huffman files
+    (SOF0-2) of 8-bit precision, grey or three components (YCbCr, or RGB
+    where the file says so), sampling factors 1 to 4 at whole ratios, 8-
+    and 16-bit quantization tables, restart intervals, Annex K's Huffman
+    tables where a file defines none; libjpeg-turbo's ``JDCT_ISLOW``
+    IDCT, block smoothing of progressive files left unrefined, fancy
+    upsampling and fixed-point YCbCr -> RGB. Lossless, hierarchical and arithmetic-coded
+    files, 12-bit precision, 2- or 4-component (CMYK / YCCK) files and
+    fractional sampling ratios raise ``ValueError`` naming the gap.
+  - PNG: every colour type at every bit depth the standard allows (grey
+    at 1/2/4/8/16, palette at 1/2/4/8, grey + alpha, RGB and RGBA at
+    8/16), Adam7 interlaced or not, the five row filters; IDAT is
+    inflated by Python's ``zlib`` here, the codec unfilters,
+    de-interlaces and converts as PIL's modes do (16-bit grey saturates
+    at 255, other 16-bit samples keep their high byte, sub-byte grey is
+    scaled, alpha and tRNS are dropped).
+
+* :func:`decode_png` and :func:`decode_jpeg`: the plain versions, in
+  numpy, which the tests and ``chip_smoke.py`` hold the codec against.
+  ``decode_png`` reads 8-bit PNGs of every colour type, not interlaced,
+  with any of the five row filters; 16-bit or sub-byte depths and
+  interlaced files raise ``ValueError`` naming the gap. ``decode_jpeg``
+  reads baseline and extended-sequential Huffman JPEGs (SOF0, SOF1) as
+  the codec does, the Huffman stream in Python; progressive files and
+  the kinds the codec does not read raise ``ValueError`` naming the gap.
 * :func:`write_image`: 8-bit RGB, filter 0 (None) on every row, the
   JAX version's rounding ``clip(x * 255 + 0.5, 0, 255)``.
-* :func:`read_image` (:func:`decode_image` on the file's bytes) picks the
-  decoder by the file's magic bytes, not its extension.
-* :func:`decode_png`: 8-bit PNGs of colour type grey, RGB, palette,
-  grey + alpha and RGBA, not interlaced, with any of the five row
-  filters; alpha is dropped as PIL's ``convert("RGB")`` drops it.
-  16-bit or sub-byte depths and interlaced files raise ``ValueError``
-  naming the gap.
-* :func:`decode_jpeg`: baseline and extended-sequential Huffman JPEGs
-  (SOF0, SOF1) of 8-bit precision, grey or three components (YCbCr, or
-  RGB where the file says so), each sampling factor 1 or 2, 8- and 16-bit
-  quantization tables, restart intervals. It follows libjpeg(-turbo)'s
-  defaults, which PIL decodes with: the ``JDCT_ISLOW`` integer IDCT
-  (``jidctint.c``), fancy upsampling (``jdsample.c``) and the
-  fixed-point YCbCr -> RGB of ``jdcolor.c``, so its pixels are PIL's.
-  Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-  precision and 2- or 4-component (CMYK / YCCK) files raise
-  ``ValueError`` naming the gap.
 """
 
 from __future__ import annotations
 
 import array
+import ctypes
 import functools
 import pathlib
 import re
@@ -39,6 +55,8 @@ import zlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from f2nerf_tpu_torch.kernels import build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples per pixel of each colour type
@@ -101,9 +119,9 @@ def _unfilter(data: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
-def decode_png(buf: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, 3] RGB (see the module docstring for
-    what is read)."""
+def _png_chunks(buf: bytes) -> tuple[tuple, bytes | None, bytes]:
+    """The IHDR fields, the PLTE payload (None without one) and the
+    joined IDAT payloads of a PNG; every chunk's CRC is checked."""
     if buf[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, ihdr, palette, idat = 8, None, None, []
@@ -118,13 +136,25 @@ def decode_png(buf: bytes) -> np.ndarray:
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", data)
         elif kind == b"PLTE":
-            palette = np.frombuffer(data, dtype=np.uint8).reshape(-1, 3)
+            palette = data
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
             break
     if ihdr is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
+    if palette is not None and len(palette) % 3:
+        raise ValueError(f"PNG palette of {len(palette)} bytes is not RGB "
+                         f"entries")
+    return ihdr, palette, b"".join(idat)
+
+
+def decode_png(buf: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] RGB (see the module docstring for
+    what is read)."""
+    ihdr, palette, idat = _png_chunks(buf)
+    if palette is not None:
+        palette = np.frombuffer(palette, dtype=np.uint8).reshape(-1, 3)
     w, h, depth, colour, comp, filt_method, interlace = ihdr
     if colour not in _CHANNELS:
         raise ValueError(f"PNG colour type {colour} is not defined")
@@ -136,7 +166,7 @@ def decode_png(buf: bytes) -> np.ndarray:
     if comp != 0 or filt_method != 0:
         raise ValueError("PNG compression or filter method is not 0")
     bpp = _CHANNELS[colour]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
+    raw = np.frombuffer(zlib.decompress(idat), dtype=np.uint8)
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
                          f"{h * (1 + w * bpp)}")
@@ -656,12 +686,72 @@ def _reconstruct(comps: list, frame: tuple, jfif: bool, adobe: int | None
     return _ycc_to_rgb(*planes)
 
 
+# -- the compiled codec -----------------------------------------------------
+
+_ERR_LEN = 512
+
+
+def _codec() -> ctypes.CDLL:
+    """``csrc/image_codec.cpp``, built at first use (raises with the
+    compiler's log where it cannot be)."""
+    lib = build.load_library("image_codec")
+    if not hasattr(lib, "signatures_set"):
+        sz, i32, ptr, buf = (ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_char_p)
+        for fn, args in (
+                (lib.f2_jpeg_size, [buf, sz, ctypes.POINTER(i32),
+                                    ctypes.POINTER(i32), buf, sz]),
+                (lib.f2_jpeg_decode, [buf, sz, ptr, i32, i32, buf, sz]),
+                (lib.f2_png_decode, [buf, sz, i32, i32, i32, i32, i32, buf,
+                                     i32, ptr, buf, sz])):
+            fn.argtypes, fn.restype = args, i32
+        lib.signatures_set = True
+    return lib
+
+
+def _check(rc: int, err: ctypes.Array) -> None:
+    if rc == 2:
+        raise MemoryError("the image codec ran out of memory")
+    if rc:
+        raise ValueError(err.value.decode(errors="replace"))
+
+
+def _codec_jpeg(buf: bytes) -> np.ndarray:
+    lib = _codec()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    _check(lib.f2_jpeg_size(buf, len(buf), ctypes.byref(h), ctypes.byref(w),
+                            err, _ERR_LEN), err)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    _check(lib.f2_jpeg_decode(buf, len(buf), out.ctypes.data, h.value,
+                              w.value, err, _ERR_LEN), err)
+    return out
+
+
+def _codec_png(buf: bytes) -> np.ndarray:
+    (w, h, depth, colour, comp, filt_method, interlace), palette, idat = \
+        _png_chunks(buf)
+    if comp != 0 or filt_method != 0:
+        raise ValueError("PNG compression or filter method is not 0")
+    lib = _codec()
+    raw = zlib.decompress(idat)
+    palette = palette or b""
+    out = np.empty((h, w, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    _check(lib.f2_png_decode(raw, len(raw), w, h, depth, colour, interlace,
+                             palette, len(palette) // 3, out.ctypes.data,
+                             err, _ERR_LEN), err)
+    return out
+
+
 def decode_image(buf: bytes) -> np.ndarray:
-    """PNG or JPEG bytes -> uint8 [H, W, 3] RGB, by the magic bytes."""
+    """PNG or JPEG bytes -> uint8 [H, W, 3] RGB, by the magic bytes,
+    through the compiled codec."""
+    buf = bytes(buf)
     if buf[:4] == PNG_SIGNATURE[:4]:
-        return decode_png(buf)
+        return _codec_png(buf)
     if buf[:2] == JPEG_SOI:
-        return decode_jpeg(buf)
+        return _codec_jpeg(buf)
     for magic, name in _OTHER_FORMATS:
         if re.match(magic, buf[:12]):
             raise ValueError(f"{name} images are not supported: only PNG "

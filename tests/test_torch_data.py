@@ -218,10 +218,12 @@ def test_png_filter_types(filt, colour, tmp_path):
 
 
 def test_png_rejects_what_it_does_not_read(tmp_path):
-    """16-bit, interlaced and JPEG files raise naming the gap in the PNG
-    decoder; since the JPEG decoder (C3), ``read_image`` and
-    ``load_dataset`` read the JPEG files to PIL's pixels
-    (``test_torch_jpeg.py`` holds that decoder)."""
+    """16-bit, interlaced and JPEG files raise naming the gap in the plain
+    PNG decoder; since the compiled codec (C5), ``read_image`` reads the
+    16-bit and interlaced files to the JAX package's pixels
+    (``test_torch_image_codec.py`` holds the codec), and since the JPEG
+    decoder (C3) it and ``load_dataset`` read the JPEG files to PIL's
+    pixels (``test_torch_jpeg.py`` holds that decoder)."""
     deep = _pil_png(np.arange(60, dtype=np.uint16).reshape(6, 10) * 1000)
     with pytest.raises(ValueError, match="16-bit"):
         timg.decode_png(deep)
@@ -233,6 +235,18 @@ def test_png_rejects_what_it_does_not_read(tmp_path):
         ">I", zlib.crc32(b"IHDR" + ihdr) & 0xFFFFFFFF)
     with pytest.raises(ValueError, match="interlaced"):
         timg.decode_png(bytes(interlaced))
+    # a whole Adam7 file: passes 1, 6 and 7 of a 2x2 image, filter 0 (the
+    # file above holds too few bytes for them: PIL refuses it too)
+    px = _smooth(np.random.default_rng(5), 2, 2, 3)
+    raw = b"".join(b"\x00" + p.tobytes() for p in (px[0, 0], px[0, 1], px[1]))
+    idat = zlib.compress(raw)
+    adam7 = (bytes(interlaced[:33]) + struct.pack(">I", len(idat)) + b"IDAT"
+             + idat + struct.pack(">I", zlib.crc32(b"IDAT" + idat)
+                                  & 0xFFFFFFFF) + interlaced[-12:])
+    for name, data in (("deep.png", deep), ("adam7.png", adam7)):
+        (tmp_path / name).write_bytes(data)
+        np.testing.assert_array_equal(timg.read_image(tmp_path / name),
+                                      jimg.read_image(tmp_path / name))
     (tmp_path / "ds" / "images").mkdir(parents=True)
     ds = tsyn.make_sphere_dataset(n_images=2, h=8, w=8)
     tdata.save_dataset(ds, tmp_path / "ds")

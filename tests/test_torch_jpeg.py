@@ -9,7 +9,10 @@ against PIL, which the JAX package reads images with.
 * The committed fixtures (``tests/torch_fixtures/jpeg``, written by this
   file's ``__main__``) equal their stored PIL decodes (``expected.npz``),
   which ``chip_smoke.py`` checks again on the machine without PIL.
-* The kinds the decoder does not read raise ``ValueError`` naming the gap.
+* The kinds the decoder does not read raise ``ValueError`` naming the gap;
+  of these, the compiled codec behind ``read_image`` reads progressive
+  files and sampling factors of 3 (to PIL's pixels) and raises on the
+  rest.
 * A JPEG dataset loads to the same array in both packages.
 """
 
@@ -119,16 +122,22 @@ def test_sixteen_bit_quantization_tables():
     _check(data)
 
 
+def _with_fill_bytes(data: bytes) -> bytes:
+    """``data`` with an APP5 segment before its first scan and fill bytes
+    before its RST1 markers and its EOI."""
+    sos = data.index(b"\xff\xda")
+    app = b"\xff\xe5" + struct.pack(">H", 6) + b"abcd"
+    body = data[sos:].replace(b"\xff\xd1", b"\xff\xff\xff\xd1")
+    return data[:sos] + app + body[:-2] + b"\xff\xff\xd9"
+
+
 def test_fill_bytes_and_extra_segments():
     """Fill bytes before markers, an APP and a COM segment are skipped."""
     rng = np.random.default_rng(6)
     data = _jpeg(_smooth(rng, 24, 40), quality=80,
                  restart_marker_blocks=2, comment=b"a comment")
-    sos = data.index(b"\xff\xda")
-    app = b"\xff\xe5" + struct.pack(">H", 6) + b"abcd"
-    body = data[sos:].replace(b"\xff\xd1", b"\xff\xff\xff\xd1")
-    padded = data[:sos] + app + body[:-2] + b"\xff\xff\xd9"
-    np.testing.assert_array_equal(timg.decode_jpeg(padded), _pil(data))
+    np.testing.assert_array_equal(timg.decode_jpeg(_with_fill_bytes(data)),
+                                  _pil(data))
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURE_SPECS))
@@ -167,9 +176,18 @@ def _unsupported():
 @pytest.mark.parametrize("kind", ["progressive", "sof9", "lossless",
                                   "12-bit", "cmyk", "sampling3"])
 def test_unsupported_kinds_raise_naming_the_gap(kind):
+    """The plain decoder raises on each kind, naming it; the codec behind
+    ``decode_image`` does too, except on progressive files and sampling
+    factors of 3, which it reads to PIL's pixels
+    (``test_torch_image_codec.py`` holds it)."""
     data, words = _unsupported()[kind]
     with pytest.raises(ValueError, match=words):
         timg.decode_jpeg(data)
+    if kind in ("progressive", "sampling3"):
+        np.testing.assert_array_equal(timg.decode_image(data), _pil(data))
+    else:
+        with pytest.raises(ValueError, match=words):
+            timg.decode_image(data)
 
 
 def test_read_image_dispatches_on_magic_bytes(tmp_path):
