@@ -147,9 +147,10 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    agree), LPIPS, the position error before and after recovery, the
    localizer's ms, launches per sub-path ``tools/<name>``.
 
-15. Data prep (``dataprep_phase``), with jax, PIL and yaml unimportable
-   in process and, through a ``sitecustomize`` on ``PYTHONPATH``, in the
-   drivers' child processes: (a) every fixture of
+15. Data prep (``dataprep_phase``), with jax, PIL and yaml (and in
+   process zstandard and lz4) unimportable in process and, through a
+   ``sitecustomize`` on ``PYTHONPATH``, in the drivers' child processes:
+   (a) every fixture of
    ``tests/torch_fixtures/jpeg`` and ``tests/torch_fixtures/codec``
    (baseline and progressive JPEGs; 16-bit, sub-byte, palette and Adam7
    PNGs) decoded by the compiled codec behind ``read_image`` to its
@@ -163,10 +164,20 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    ``CompressedImage`` views on camera0, the world poses as pose messages
    at the views' stamps plus one before and one after, a zero
    calibration) and a second bag of the JPEG fixtures, bgr8 and mono8
-   frames; (c) ``tools.extract_images_from_rosbag`` and
+   frames, then ``tools.extract_images_from_rosbag`` and
    ``tools.convert_pose_tsv_to_f2_format`` (a ``K`` / ``D``
    ``camera_info.yaml``, ROADMAP fact 8): the images bitwise, the
-   ``cams_meta.tsv`` poses within 1e-6; (d) ``tools/full_test.sh`` on that
+   ``cams_meta.tsv`` poses within 1e-6; (c) compressed mcap bags
+   (``bag_codec_check``): every fixture of ``tests/torch_fixtures/bag``
+   (zstd and LZ4 frames that together reach every mode of the compiled
+   chunk codec, and the second bag's records plus a ``CameraInfo`` in a
+   zstd- and an LZ4-chunked mcap file) decoded to its stored length and
+   SHA-256; both mcap bags and a ``.db3`` bag of the same records through
+   the extractor and the converter (``K`` written over three lines) to
+   the same images, ``pose.tsv`` and ``cams_meta.tsv``, and to the JAX
+   extractor's stored images and ``pose.tsv``; the codec's build seconds
+   and its host decode rate on each frame fixture (at least
+   ``CHUNK_RATE_S`` each); (d) ``tools/full_test.sh`` on that
    dataset with phase 6's ``Config.quality(end_iter=600)`` (the
    training-view PSNR beside phase 6's and an untrained map's); (e)
    ``tools/run_cli_until_done.sh`` training that map on to
@@ -247,6 +258,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import importlib.abc
 import importlib.util
@@ -3183,6 +3195,8 @@ def filtered_png(rgb: np.ndarray, filters: tuple = (4, 1)) -> bytes:
 JPEG_FIXTURES = (pathlib.Path(__file__).resolve().parent / "tests"
                  / "torch_fixtures" / "jpeg")
 CODEC_FIXTURES = JPEG_FIXTURES.parent / "codec"
+BAG_FIXTURES = JPEG_FIXTURES.parent / "bag"
+CHUNK_RATE_S = 0.5         # each decode rate is timed over at least this
 # restart at every MCU: the tiled frames' sources
 TILE_SOURCE = JPEG_FIXTURES / "ycc420_rst1_48x32.jpg"
 PROGRESSIVE_TILE_SOURCE = CODEC_FIXTURES / "prog_ycc420_rst1_48x32.jpg"
@@ -3368,11 +3382,11 @@ def scene_bag(ds, path: pathlib.Path) -> tuple[np.ndarray, np.ndarray]:
     return views, world
 
 
-def mixed_bag(path: pathlib.Path) -> tuple[list, list]:
+def mixed_messages() -> tuple[list, list, list]:
     """Phase 15b's second bag: the JPEG fixtures on camera0, a raw bgr8
     ``Image`` topic (camera1) and a mono8 one (camera2), with identity
-    poses around them. Returns (topics, the expected images in the
-    extractor's merged order)."""
+    poses around them. Returns (the records, the topics, the expected
+    images in the extractor's merged order)."""
     from f2nerf_tpu_torch.tools import rosbag_reader as rb
 
     expected = np.load(JPEG_FIXTURES / "expected.npz")
@@ -3409,9 +3423,207 @@ def mixed_bag(path: pathlib.Path) -> tuple[list, list]:
             want.append(img_rgb)
             t += BAG_DT
     eye = np.tile(np.eye(3, 4), (2, 1, 1))
-    rb.write_bag(str(path), msgs + _pose_records(
-        [BAG_T0 - BAG_DT, t], eye, rb.encode))
+    return msgs + _pose_records([BAG_T0 - BAG_DT, t], eye, rb.encode), \
+        topics, want
+
+
+def mixed_bag(path: pathlib.Path) -> tuple[list, list]:
+    """:func:`mixed_messages` in a ``.db3`` bag; returns (topics, the
+    expected images)."""
+    from f2nerf_tpu_torch.tools import rosbag_reader as rb
+
+    msgs, topics, want = mixed_messages()
+    rb.write_bag(str(path), msgs)
     return topics, want
+
+
+def camera_info_record() -> tuple:
+    """A ``CameraInfo`` record for camera0 of the mixed bag (the JPEG
+    fixtures' largest size), stamped before its first frame."""
+    from f2nerf_tpu_torch.tools import rosbag_reader as rb
+
+    typ = "sensor_msgs/msg/CameraInfo"
+    t = BAG_T0 - 2 * BAG_DT
+    return (CAMERA_TOPIC.format(0).rsplit("/", 2)[0] + "/camera_info", typ,
+            int(round(t * 1e9)), rb.encode({
+                "header": {"stamp": rb.make_stamp(t),
+                           "frame_id": "camera0_optical"},
+                "height": 32, "width": 48, "distortion_model": "plumb_bob",
+                "d": [0.01, -0.002, 0.0, 0.0, 0.0],
+                "k": [40.0, 0.0, 24.0, 0.0, 41.0, 16.0, 0.0, 0.0, 1.0],
+                "r": [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0],
+                "p": [40.0, 0.0, 24.0, 0.0, 0.0, 41.0, 16.0, 0.0, 0.0, 0.0,
+                      1.0, 0.0],
+                "binning_x": 0, "binning_y": 0,
+                "roi": {"x_offset": 0, "y_offset": 0, "height": 0,
+                        "width": 0, "do_rectify": 0}}, typ))
+
+
+def zero_calibration() -> dict:
+    """The extractor's calibration for the phase's bags: every sensor at
+    base_link."""
+    zero = dict.fromkeys(("x", "y", "z", "roll", "pitch", "yaw"), 0.0)
+    return {"base_link": {"sensor_kit_base_link": zero},
+            "sensor_kit_base_link": {f"camera{i}": zero for i in range(3)}}
+
+
+def mcap_chunks(buf: bytes) -> list[tuple[str, int, bytes]]:
+    """The chunks of an mcap file: (compression, uncompressed size,
+    compressed records)."""
+    from f2nerf_tpu_torch.tools import rosbag_reader as rb
+
+    out = []
+    for op, content in rb._mcap_records(buf, 8):
+        if op == rb._OP_FOOTER:
+            break
+        if op == rb._OP_CHUNK:
+            usize = struct.unpack_from("<Q", content, 16)[0]
+            compression, off = rb._mcap_string(content, 28)
+            n = struct.unpack_from("<Q", content, off)[0]
+            out.append((compression, usize, content[off + 8:off + 8 + n]))
+    return out
+
+
+def _decoder(compression: str):
+    from f2nerf_tpu_torch.utils import decompress
+
+    return {"zstd": decompress.zstd_decompress,
+            "lz4": decompress.lz4_frame_decompress}[compression]
+
+
+def extraction(bag: pathlib.Path, calib: pathlib.Path, out: pathlib.Path,
+               topics: list) -> dict:
+    """``extract_images_from_rosbag`` on ``bag`` into ``out``, the
+    extracted ``camera_info.yaml``'s intrinsics rewritten as the ``K`` /
+    ``D`` lists the converter reads (ROADMAP, fact 8; ``K`` a flow list
+    over three lines, as calibration files are written by hand), then
+    ``convert_pose_tsv_to_f2_format``: {"images": [decoded pixels],
+    "pose_tsv", "cams_meta"} (the two TSV texts)."""
+    from f2nerf_tpu_torch.core import yaml_io
+    from f2nerf_tpu_torch.tools import convert_pose_tsv_to_f2_format as conv
+    from f2nerf_tpu_torch.tools import extract_images_from_rosbag as extract
+    from f2nerf_tpu_torch.utils.image_io import decode_png
+
+    _tool(extract.main, str(bag), str(calib), str(out), "--image_topics",
+          *topics)
+    info = yaml_io.load(out / "camera_info.yaml", block_sequences=True)
+    k = info["camera_matrix"]["data"]
+    rows = [", ".join(map(repr, k[i:i + 3])) for i in (0, 3, 6)]
+    (out / "camera_info.yaml").write_text(
+        "K: [" + ",\n    ".join(rows) + "]\nD: ["
+        + ", ".join(map(repr, info["distortion_coefficients"]["data"]))
+        + "]\n")
+    _tool(conv.main, str(out / "pose.tsv"))
+    return {"images": [decode_png(p.read_bytes())
+                       for p in sorted((out / "images").glob("*.png"))],
+            "pose_tsv": (out / "pose.tsv").read_text(),
+            "cams_meta": (out / "cams_meta.tsv").read_text()}
+
+
+def pixels_sha256(img: np.ndarray) -> str:
+    return hashlib.sha256(
+        f"{img.shape}".encode() + np.ascontiguousarray(img).tobytes()
+    ).hexdigest()
+
+
+def _decode_rate(fn, data: bytes, size: int) -> tuple[float, int]:
+    """Output MB/s of ``fn(data, size)`` over repeats of at least
+    ``CHUNK_RATE_S`` seconds; (rate, repeats)."""
+    reps, t0 = 0, time.perf_counter()
+    while True:
+        fn(data, size)
+        reps += 1
+        dt = time.perf_counter() - t0
+        if dt >= CHUNK_RATE_S:
+            return reps * size / dt / 1e6, reps
+
+
+def bag_codec_check(root: pathlib.Path, calib: pathlib.Path,
+                    build_s: float | None = None) -> dict:
+    """Phase 15c: every committed fixture of ``tests/torch_fixtures/bag``
+    (raw zstd and LZ4 frames, and the mixed bag's records in a zstd- and
+    an LZ4-chunked mcap file) decodes by the compiled chunk codec to its
+    stored length and SHA-256; both mcap bags and a ``.db3`` bag of the
+    same records go through the extractor and the converter to the same
+    images (bitwise), ``pose.tsv`` and ``cams_meta.tsv``, and to the
+    stored images and ``pose.tsv`` (the JAX extractor's, with
+    ``zstandard``); the codec's build seconds and its decode rate (MB/s
+    of output) on each raw frame fixture, the largest zstd and LZ4 ones
+    marked, on the host. ``build_s``: phase 1's build seconds
+    of the codec, reported as given."""
+    from f2nerf_tpu_torch.tools import rosbag_reader as rb
+
+    root.mkdir(parents=True, exist_ok=True)
+    expected = json.loads((BAG_FIXTURES / "expected.json").read_text())
+    sizes = {}
+    for name, want in sorted(expected["frames"].items()):
+        data = (BAG_FIXTURES / name).read_bytes()
+        got = _decoder(want["compression"])(data, want["size"])
+        if hashlib.sha256(got).hexdigest() != want["sha256"]:
+            raise RuntimeError(f"{name}: decodes to other bytes than "
+                               f"stored")
+        sizes[name] = (len(data), want["size"])
+    msgs, topics, _ = mixed_messages()
+    msgs = msgs + [camera_info_record()]
+    rb.write_bag(str(root / "chunked.db3"), msgs)
+    results = {"chunked.db3": extraction(root / "chunked.db3", calib,
+                                         root / "chunked_db3", topics)}
+    for name, want in sorted(expected["bags"].items()):
+        buf = (BAG_FIXTURES / name).read_bytes()
+        chunks = mcap_chunks(buf)
+        if [(c, n) for c, n, _ in chunks] != [(want["compression"],
+                                               want["chunk_size"])]:
+            raise RuntimeError(f"{name}: chunks {[c[:2] for c in chunks]}")
+        comp, usize, data = chunks[0]
+        if hashlib.sha256(_decoder(comp)(data, usize)).hexdigest() \
+                != want["chunk_sha256"]:
+            raise RuntimeError(f"{name}: its chunk decodes to other bytes "
+                               f"than stored")
+        if sorted(rb.read_bag_any(str(BAG_FIXTURES / name))) != sorted(msgs):
+            raise RuntimeError(f"{name}: its records differ from the "
+                               f"mixed bag's")
+        res = extraction(BAG_FIXTURES / name, calib,
+                         root / name.replace(".", "_"), topics)
+        if ([pixels_sha256(i) for i in res["images"]] != want["images"]
+                or res["pose_tsv"] != want["pose_tsv"]):
+            raise RuntimeError(f"{name}: the extracted images or poses "
+                               f"differ from the JAX extractor's")
+        results[name] = res
+    ref = results["chunked.db3"]
+    for name, res in results.items():
+        if (len(res["images"]) != len(ref["images"]) or not all(
+                np.array_equal(a, b)
+                for a, b in zip(res["images"], ref["images"]))
+                or res["pose_tsv"] != ref["pose_tsv"]
+                or res["cams_meta"] != ref["cams_meta"]):
+            raise RuntimeError(f"{name}: extraction differs from the .db3 "
+                               f"bag's")
+    rates = {}
+    for name, want in sorted(expected["frames"].items()):
+        data = (BAG_FIXTURES / name).read_bytes()
+        rate, reps = _decode_rate(_decoder(want["compression"]), data,
+                                  want["size"])
+        rates[name] = {"bytes_in": len(data), "bytes_out": want["size"],
+                       "mb_per_s": rate, "repeats": reps}
+    largest = {comp: max((n for n, w in expected["frames"].items()
+                          if w["compression"] == comp),
+                         key=lambda n: rates[n]["bytes_in"])
+               for comp in ("zstd", "lz4")}
+    res = {"fixtures": len(expected["frames"]) + len(expected["bags"]),
+           "images": len(ref["images"]),
+           "build_s": build_s, "decode": rates,
+           "largest": largest}
+    smi = nvidia_smi() if torch.cuda.is_available() else "no card"
+    log(f"chunk codec: {res['fixtures']} fixtures decode to their stored "
+        f"SHA-256s; the zstd and LZ4 mcap bags extract to the .db3 bag's "
+        f"{res['images']} images, pose.tsv and cams_meta.tsv and to the JAX "
+        f"extractor's; build {res['build_s']} s [{smi}]")
+    for name, v in rates.items():
+        mark = " (the largest)" if name in largest.values() else ""
+        log(f"  host decode {name}{mark}: {v['bytes_in']} -> "
+            f"{v['bytes_out']} bytes, {v['mb_per_s']:.1f} MB/s of output "
+            f"over {v['repeats']} repeats [{smi}]")
+    return res
 
 
 def child_env(root: pathlib.Path, launches: pathlib.Path, **extra) -> dict:
@@ -3479,12 +3691,14 @@ def _first(lines: list, text: str) -> float:
 
 
 def dataprep_phase(seed: int, dev: torch.device, root: pathlib.Path,
-                   phase6: dict | None = None) -> dict:
+                   phase6: dict | None = None,
+                   codec_build_s: float | None = None) -> dict:
     """Phase 15: a bag built here -> extraction -> conversion ->
     ``full_test.sh`` and a windowed ``run_cli_until_done.sh`` -> the
     offset tool, with jax, PIL and yaml unimportable (see the module
     docstring). ``phase6``: phase 6's result, whose training-view PSNR is
-    reported beside this map's."""
+    reported beside this map's; ``codec_build_s``: phase 1's build seconds
+    of the chunk codec."""
     from f2nerf_tpu_torch.core import yaml_io
     from f2nerf_tpu_torch.tools import convert_pose_tsv_to_f2_format as conv
     from f2nerf_tpu_torch.tools import extract_images_from_rosbag as extract
@@ -3493,17 +3707,14 @@ def dataprep_phase(seed: int, dev: torch.device, root: pathlib.Path,
 
     root.mkdir(parents=True, exist_ok=True)
     res, sub = {}, {}
-    with unimportable("jax", "PIL", "yaml"):
+    with unimportable("jax", "PIL", "yaml", "zstandard", "lz4"):
         res["codec"] = codec_check()
-        # b, c: the bags, extraction and conversion
+        # b: the bags, extraction and conversion
         ds = make_textured_dataset(seed=seed)
         views, world = scene_bag(ds, root / "scene.db3")
         topics, want = mixed_bag(root / "mixed.db3")
-        zero = dict.fromkeys(("x", "y", "z", "roll", "pitch", "yaw"), 0.0)
         calib = root / "calib.yaml"
-        yaml_io.dump({"base_link": {"sensor_kit_base_link": zero},
-                      "sensor_kit_base_link": {f"camera{i}": zero
-                                               for i in range(3)}}, calib)
+        yaml_io.dump(zero_calibration(), calib)
         data = root / "data"
         t0 = time.perf_counter()
         _tool(extract.main, str(root / "scene.db3"), str(calib), str(data),
@@ -3538,6 +3749,9 @@ def dataprep_phase(seed: int, dev: torch.device, root: pathlib.Path,
             f"bgr8 / mono8 frames extracted bitwise in "
             f"{res['extract_s']:.2f} s; cams_meta.tsv poses within "
             f"{res['pose_err']:.2e} of the scene's")
+        # c: compressed mcap bags, through the chunk codec
+        res["chunk_codec"] = bag_codec_check(root / "chunked", calib,
+                                             codec_build_s)
 
         # d: full_test.sh, as phase 6 trains (the card's memory that this
         # process caches is handed back to the drivers first)
@@ -4111,7 +4325,8 @@ def main() -> int:
                               work / "tools")
         add_paths("", runs["tools"])
         runs["dataprep"] = phase("data prep", dataprep_phase, args.seed, dev,
-                                 work / "dataprep", runs["run_directory"])
+                                 work / "dataprep", runs["run_directory"],
+                                 secs["chunk_codec"])
         add_paths("", runs["dataprep"])
         runs["parts"] = phase("parts", parts_phase, args.seed, dev,
                               work / "parts")

@@ -13,15 +13,18 @@ The data-prep tools also read ROS calibration and camera files and read
 and write Autoware parameter files, whose top key is ``/**``.
 
 :func:`loads` parses block mappings nested by indentation, plain, single-
-and double-quoted scalars, flow lists of scalars, comments, one
-``%YAML`` directive and the ``---`` / ``...`` markers. It resolves plain
-scalars as ``yaml.safe_load`` does (YAML 1.1: ``true``/``yes``/``on`` are
-booleans, a float needs a dot, ``~``/``null`` are None). With
-``block_sequences=True`` it also reads block sequences of scalars under
-a key, as ``yaml.safe_dump`` writes the lists of a ROS
-``camera_info.yaml``; run files never hold them. Anything else (anchors
-and aliases, tags, block sequences otherwise, nested or flow mappings,
-multi-line strings, tabs) raises ``ValueError`` naming the line.
+and double-quoted scalars, flow lists and flow mappings of scalars (on
+one line or continued over several, as hand-edited calibration files
+write a camera matrix), comments, one ``%YAML`` directive and the
+``---`` / ``...`` markers. It resolves plain scalars as
+``yaml.safe_load`` does (YAML 1.1: ``true``/``yes``/``on`` are booleans,
+a float needs a dot, ``~``/``null`` are None). With
+``block_sequences=True`` it also reads block sequences of scalars or
+flow collections under a key, as ``yaml.safe_dump`` writes the lists of
+a ROS ``camera_info.yaml``; run files never hold them. Anything else
+(anchors and aliases, tags, block sequences otherwise, nested flow
+collections, multi-line strings, duplicate keys, tabs) raises
+``ValueError`` naming the line.
 
 Keys are plain (a letter, digit, ``_`` or ``/`` first, then those and
 ``.``, ``*``, ``-``) or quoted.
@@ -103,7 +106,8 @@ def _scalar(tok: str, lineno: int, line: str) -> Any:
     if tok[0] in "&*!|>[]{}@`%" or tok.startswith(("- ", "? ")) \
             or tok == "-":
         _fail(lineno, line, "unsupported YAML construct (anchors, aliases, "
-              "tags, block sequences, multi-line strings, flow mappings)")
+              "tags, block sequences, multi-line strings, nested flow "
+              "collections)")
     if ": " in tok or " #" in tok:
         _fail(lineno, line, "unsupported plain scalar")
     if _OTHER_NUMBER.match(tok):
@@ -125,23 +129,95 @@ def _strip_comment(text: str) -> str:
     return text
 
 
+def _flow_scan(text: str) -> tuple[int, bool, bool, list[int]]:
+    """(bracket depth, nested, quote open, the commas of the outermost
+    collection) at the end of ``text``, counting brackets and commas
+    outside quotes; ``nested``: a bracket opened inside another."""
+    depth, nested, quote, commas = 0, False, None, []
+    for i, ch in enumerate(text):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or text[i - 1] in " [,{\n"):
+            quote = ch
+        elif ch in "[{":
+            nested |= depth > 0
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 1:
+            commas.append(i)
+    return depth, nested, quote is not None, commas
+
+
 def _value(text: str, lineno: int, line: str) -> Any:
+    """A scalar, or a flow list or flow mapping of scalars (its lines
+    joined by newlines)."""
     text = text.strip()
-    if text.startswith("["):
-        if not text.endswith("]"):
-            _fail(lineno, line, "a flow list must close on its line")
-        inner = text[1:-1].strip()
-        if any(ch in inner for ch in "[]{}"):
-            _fail(lineno, line, "nested flow collections are not supported")
-        if not inner:
-            return []
-        items = [t.strip() for t in inner.split(",")]
-        if items[-1] == "":
-            items.pop()
-        if any(t == "" for t in items):
-            _fail(lineno, line, "empty item in a flow list")
+    if text[:1] not in ("[", "{"):
+        return _scalar(text, lineno, line)
+    close = "]" if text[0] == "[" else "}"
+    depth, nested, quote, commas = _flow_scan(text)
+    if nested:
+        _fail(lineno, line, "nested flow collections are not supported")
+    if depth != 0 or quote or not text.endswith(close):
+        _fail(lineno, line, "text after a flow collection" if depth == 0
+              and not quote else "a flow collection does not close")
+    cuts = [0, *commas, len(text) - 1]
+    items = [text[i + 1:j].strip() for i, j in zip(cuts, cuts[1:])]
+    if items[-1] == "":             # a trailing comma, or an empty body
+        items.pop()
+    if any(t == "" for t in items):
+        _fail(lineno, line, "empty item in a flow collection")
+    if any("\n" in t for t in items):
+        _fail(lineno, line, "multi-line strings are not supported")
+    if close == "]":
         return [_scalar(t, lineno, line) for t in items]
-    return _scalar(text, lineno, line)
+    mapping: dict[str, Any] = {}
+    for item in items:
+        m = _KEY.match(item)
+        if m is None:
+            _fail(lineno, line, "expected 'key: value' in a flow mapping")
+        key = _key(m.group(1))
+        if key in mapping:
+            _fail(lineno, line, f"duplicate key {key!r}")
+        mapping[key] = _scalar((m.group(2) or "").strip(), lineno, line)
+    return mapping
+
+
+def _key(tok: str) -> str:
+    if tok[0] == "'":
+        return tok[1:-1].replace("''", "'")
+    if tok[0] == '"':
+        return tok[1:-1]
+    return tok
+
+
+def _flow_text(first: str, lines: list[str], at: int, lineno: int
+               ) -> tuple[str, int]:
+    """A value that opens a flow collection on line ``lineno``, with the
+    lines after it (from index ``at``) that continue it, as PyYAML reads
+    them: (the text, lines joined by newlines, the index after it)."""
+    text = first.strip()
+    if text[:1] not in ("[", "{"):
+        return text, at
+    while True:
+        depth, _, quote, _ = _flow_scan(text)
+        if quote:
+            _fail(lineno, lines[at - 1], "multi-line strings are not "
+                  "supported")
+        if depth <= 0:
+            return text, at
+        if at == len(lines):
+            _fail(lineno, lines[lineno - 1], "a flow collection does not "
+                  "close")
+        raw = lines[at]
+        at += 1
+        body = _strip_comment(raw).strip()
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            _fail(at, raw, "tabs in indentation")
+        if body:
+            text += "\n" + body
 
 
 def loads(text: str, block_sequences: bool = False) -> Any:
@@ -153,7 +229,12 @@ def loads(text: str, block_sequences: bool = False) -> Any:
     pending: tuple[int, dict, str] | None = None
     seq: tuple[int, list] | None = None      # the open block sequence
     started = ended = False
-    for lineno, raw in enumerate(text.splitlines(), 1):
+    lines = text.splitlines()
+    at = 0
+    while at < len(lines):
+        raw = lines[at]
+        at += 1
+        lineno = at
         if "\t" in raw[:len(raw) - len(raw.lstrip())]:
             _fail(lineno, raw, "tabs in indentation")
         body = _strip_comment(raw).rstrip()
@@ -173,15 +254,17 @@ def loads(text: str, block_sequences: bool = False) -> Any:
         indent = len(body) - len(body.lstrip(" "))
         item = body.strip()
         if block_sequences and (item == "-" or item.startswith("- ")):
-            # a block sequence of scalars under the pending key, at its
-            # indent or deeper (``yaml.safe_dump`` writes lists so)
+            # a block sequence of scalars or flow collections under the
+            # pending key, at its indent or deeper (``yaml.safe_dump``
+            # writes lists so)
             if pending is not None and indent >= pending[0]:
                 seq = (indent, [])
                 pending[1][pending[2]] = seq[1]
                 pending = None
             elif seq is None or indent != seq[0]:
                 _fail(lineno, raw, "a block sequence item outside a key")
-            seq[1].append(_scalar(item[1:].strip(), lineno, raw))
+            value, at = _flow_text(item[1:], lines, at, lineno)
+            seq[1].append(_value(value, lineno, raw))
             continue
         seq = None
         m = _KEY.match(item)
@@ -201,18 +284,15 @@ def loads(text: str, block_sequences: bool = False) -> Any:
         if not stack or indent != stack[-1][0]:
             _fail(lineno, raw, "indentation does not match any open mapping")
         mapping = stack[-1][1]
-        key, rest = m.group(1), m.group(2)
-        if key[0] == "'":
-            key = key[1:-1].replace("''", "'")
-        elif key[0] == '"':
-            key = key[1:-1]
+        key, rest = _key(m.group(1)), m.group(2)
         if key in mapping:
             _fail(lineno, raw, f"duplicate key {key!r}")
         if rest is None or not rest.strip():
             mapping[key] = None
             pending = (indent, mapping, key)
         else:
-            mapping[key] = _value(rest, lineno, raw)
+            value, at = _flow_text(rest, lines, at, lineno)
+            mapping[key] = _value(value, lineno, raw)
     return root
 
 

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels and its host image codec.
+"""Build and load the port's CUDA kernels and its host codecs.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use, on the machine with the card, by ``nvcc`` into a shared library
@@ -32,8 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 # host libraries by name: C++ sources outside csrc/
-HOST_SOURCES = {"image_codec": pathlib.Path(__file__).resolve().parents[1]
-                / "utils" / "csrc" / "image_codec.cpp"}
+HOST_SOURCES = {name: pathlib.Path(__file__).resolve().parents[1] / "utils"
+                / "csrc" / f"{name}.cpp"
+                for name in ("chunk_codec", "image_codec")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -54,8 +55,8 @@ def _cxx() -> str:
         found = shutil.which(cand)
         if found is not None:
             return found
-    raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the image "
-                       "codec is built from its source at first use")
+    raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the host "
+                       "codecs are built from their sources at first use")
 
 
 def kernel_names() -> list[str]:

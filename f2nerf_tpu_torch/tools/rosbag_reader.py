@@ -14,8 +14,12 @@ is a record stream; both are read with the standard library:
 * :func:`write_bag` / :func:`write_bag_mcap` — the inverse, used by the
   tests and by ``chip_smoke.py`` to build bags.
 
-``zstandard`` and ``lz4`` are imported only for a compressed mcap chunk:
-without them such a bag raises, as it does beside the JAX package.
+A compressed mcap chunk (``zstd`` or ``lz4``) is decoded by the port's
+compiled chunk codec (``utils/decompress.py``), never by the
+``zstandard`` or ``lz4`` modules the JAX reader imports, so such bags are
+read where neither is installed. Where a chunk holds several zstd frames,
+all are decoded (RFC 8878), where the JAX reader keeps only the first.
+Only :func:`write_bag_mcap`'s ``compression='zstd'`` needs ``zstandard``.
 
 CDR notes (XCDR1, the rosbag2 default): 4-byte encapsulation header
 (0x00 0x01 = little-endian) followed by fields aligned to their
@@ -29,6 +33,8 @@ from __future__ import annotations
 import sqlite3
 import struct
 from typing import Any, Iterator
+
+from f2nerf_tpu_torch.utils import decompress
 
 # --------------------------------------------------------------------------
 # message type specs: list of (field_name, type) where type is a primitive
@@ -284,18 +290,9 @@ def _mcap_decompress(compression: str, data: bytes,
     if compression in ("", "none"):
         return data
     if compression == "zstd":
-        import zstandard
-        return zstandard.ZstdDecompressor().decompress(
-            data, max_output_size=uncompressed_size)
+        return decompress.zstd_decompress(data, uncompressed_size)
     if compression == "lz4":
-        try:
-            import lz4.frame
-        except ImportError as e:
-            raise RuntimeError(
-                "bag uses lz4-compressed chunks and the lz4 module is "
-                "not installed; re-record with zstd/none or install "
-                "lz4") from e
-        return lz4.frame.decompress(data)
+        return decompress.lz4_frame_decompress(data, uncompressed_size)
     raise RuntimeError(f"unknown mcap chunk compression {compression!r}")
 
 
@@ -360,7 +357,8 @@ def write_bag_mcap(path: str,
                    compression: str = "") -> None:
     """Write records as a minimal valid mcap file (ros2 profile). With
     ``compression='zstd'`` the messages go into one compressed chunk —
-    used by tests to exercise the chunked read path."""
+    used by tests to exercise the chunked read path; that needs the
+    ``zstandard`` module, which the machine with the card lacks."""
     schemas: dict[str, int] = {}
     channels: dict[str, int] = {}
     defs = b""

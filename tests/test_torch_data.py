@@ -93,7 +93,7 @@ def test_yaml_scalars_match_pyyaml():
 
 @pytest.mark.parametrize("text", [
     "a: &x 1\n", "a: *x\n", "a: !!str 1\n", "a:\n  - 1\n", "a: |\n  x\n",
-    "a: >\n  x\n", "a: [1, [2]]\n", "a: {b: 1}\n", "a:\n\tb: 1\n",
+    "a: >\n  x\n", "a: [1, [2]]\n", "a: {b: {c: 1}}\n", "a:\n\tb: 1\n",
     "a: 010\n", "a: 1\na: 2\n", "a: 1\n---\nb: 2\n", "- 1\n",
     "a: 'x\n"])
 def test_yaml_rejects_outside_the_subset(text):

@@ -38,6 +38,7 @@ import yaml
 from PIL import Image
 from scipy.spatial.transform import Rotation
 
+from _lz4_frame import write_lz4_bag
 from f2nerf_tpu_torch.tools import (convert_pose_tsv_to_f2_format,
                                     extract_images_from_rosbag, interpolate,
                                     modified_offset_by_particles_log,
@@ -458,7 +459,8 @@ def test_modified_offset_without_params(tmp_path):
 
 _BLOCKED = r"""
 import importlib.abc, json, runpy, sys
-BLOCKED = ("yaml", "PIL", "jax", "f2nerf_tpu", "matplotlib")
+BLOCKED = ("yaml", "PIL", "jax", "f2nerf_tpu", "matplotlib", "zstandard",
+           "lz4")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -483,8 +485,8 @@ def tool(name, *argv):
     except SystemExit as e:
         rcs[name] = e.code or 0
 
-tool("extract_images_from_rosbag", "@/bag.db3", "@/calib.yaml", "@/out",
-     "--image_topics", *json.loads(sys.argv[3]))
+tool("extract_images_from_rosbag", "@/" + sys.argv[4], "@/calib.yaml",
+     "@/out", "--image_topics", *json.loads(sys.argv[3]))
 with open(work + "/out/camera_info.yaml", "w") as f:
     f.write("K: [20.0, 0.0, 8.0, 0.0, 21.0, 6.0, 0.0, 0.0, 1.0]\n"
             "D: [0.01, -0.002, 0.0, 0.0, 0.0]\n")
@@ -496,22 +498,193 @@ print(json.dumps({"rcs": rcs, "loaded": sorted(
 """
 
 
-def test_tools_run_without_jax_pil_yaml(tmp_path):
+def _write_bag(path: pathlib.Path, kind: str, msgs: list) -> None:
+    """``msgs`` in a ``.db3`` bag or an mcap bag with one zstd or LZ4
+    chunk."""
+    if kind == "db3":
+        rosbag_reader.write_bag(str(path), msgs)
+    elif kind == "zstd":
+        rosbag_reader.write_bag_mcap(str(path), msgs, compression="zstd")
+    else:
+        write_lz4_bag(path, msgs)
+
+
+def _blocked_chain(work: pathlib.Path, kind: str) -> dict:
+    """The bag of ``bag_messages()`` as ``kind`` -> extraction -> the
+    converter -> the offset tool, in a process where ``_BLOCKED``'s
+    modules raise on import."""
     msgs, _ = bag_messages()
-    rosbag_reader.write_bag(str(tmp_path / "bag.db3"), msgs)
-    (tmp_path / "calib.yaml").write_text(yaml.safe_dump(CALIB))
-    (tmp_path / "params.yaml").write_text(PARAMS_TEXT)
-    _particles(tmp_path / "p.tsv", 5)
+    bag = "bag.db3" if kind == "db3" else "bag.mcap"
+    _write_bag(work / bag, kind, msgs)
+    (work / "calib.yaml").write_text(yaml.safe_dump(CALIB))
+    (work / "params.yaml").write_text(PARAMS_TEXT)
+    _particles(work / "p.tsv", 5)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
-        [sys.executable, "-c", _BLOCKED, str(ROOT), str(tmp_path),
-         json.dumps(list(TOPICS))], capture_output=True, text=True,
-        timeout=300, cwd=tmp_path, env=env)
+        [sys.executable, "-c", _BLOCKED, str(ROOT), str(work),
+         json.dumps(list(TOPICS)), bag], capture_output=True, text=True,
+        timeout=300, cwd=work, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert set(res["rcs"].values()) == {0}, res
+    return res
+
+
+def test_tools_run_without_jax_pil_yaml(tmp_path):
+    _blocked_chain(tmp_path, "db3")
     assert len(list((tmp_path / "out" / "images").glob("*.png"))) == 16
     assert (tmp_path / "out" / "cams_meta.tsv").is_file()
     written = yaml.safe_load((tmp_path / "params.yaml").read_text())
     assert written["/**"]["ros__parameters"]["offset_position_x"] != 0.5
+
+
+@pytest.fixture(scope="module")
+def compressed_chains(tmp_path_factory) -> dict:
+    """{kind: work directory} of ``_blocked_chain`` on the zstd- and the
+    LZ4-chunked mcap bag."""
+    out = {}
+    for kind in ("zstd", "lz4"):
+        out[kind] = tmp_path_factory.mktemp(f"chain_{kind}")
+        _blocked_chain(out[kind], kind)
+    return out
+
+
+def _port_chain(work: pathlib.Path) -> None:
+    """The port's extractor and converter, in this process, on the
+    ``.db3`` bag of ``bag_messages()`` (the ``K`` / ``D`` camera file as
+    ``_BLOCKED`` writes it)."""
+    msgs, _ = bag_messages()
+    rosbag_reader.write_bag(str(work / "bag.db3"), msgs)
+    (work / "calib.yaml").write_text(yaml.safe_dump(CALIB))
+    _run(extract_images_from_rosbag.main,
+         [str(work / "bag.db3"), str(work / "calib.yaml"), str(work / "out"),
+          "--image_topics", *TOPICS])
+    (work / "out" / "camera_info.yaml").write_text(
+        "K: [20.0, 0.0, 8.0, 0.0, 21.0, 6.0, 0.0, 0.0, 1.0]\n"
+        "D: [0.01, -0.002, 0.0, 0.0, 0.0]\n")
+    _run(convert_pose_tsv_to_f2_format.main, [str(work / "out" / "pose.tsv")])
+
+
+def _same_outputs(a: pathlib.Path, b: pathlib.Path,
+                  texts=("pose.tsv", "cams_meta.tsv")) -> None:
+    """The same images (decoded, bitwise) and ``texts``."""
+    ia = sorted(p.name for p in (a / "images").glob("*.png"))
+    assert ia == sorted(p.name for p in (b / "images").glob("*.png"))
+    assert len(ia) == 16
+    for name in ia:
+        np.testing.assert_array_equal(_decoded(a / "images" / name),
+                                      _decoded(b / "images" / name))
+    for name in texts:
+        assert (a / name).read_text() == (b / name).read_text(), name
+
+
+@pytest.mark.parametrize("kind", ["zstd", "lz4"])
+def test_tools_read_compressed_bags_without_modules(kind, compressed_chains,
+                                                    tmp_path):
+    """With ``zstandard`` and ``lz4`` unimportable (beside jax, PIL and
+    yaml), the tools read a zstd- or LZ4-chunked mcap bag to the images,
+    ``pose.tsv`` and ``cams_meta.tsv`` of the ``.db3`` bag of the same
+    records."""
+    _port_chain(tmp_path)
+    _same_outputs(compressed_chains[kind] / "out", tmp_path / "out")
+
+
+def test_jax_and_port_extract_the_same_zstd_bag(compressed_chains, tmp_path,
+                                                monkeypatch):
+    """The JAX extractor (with ``zstandard``) and the port's (without it)
+    on one zstd-chunked mcap bag: the same images, bitwise, and the same
+    ``pose.tsv``."""
+    work = compressed_chains["zstd"]
+    _run(_script("extract_images_from_rosbag").main,
+         [str(work / "bag.mcap"), str(work / "calib.yaml"),
+          str(tmp_path / "jax"), "--image_topics", *TOPICS], monkeypatch,
+         "extract_images_from_rosbag")
+    _same_outputs(work / "out", tmp_path / "jax", texts=("pose.tsv",))
+
+
+FLOW_YAML = {
+    "list_over_lines": "data: [1000.0, 0.0, 960.0,\n"
+                       "       0.0, 1000.0, 540.0,\n"
+                       "       0.0, 0.0, 1.0]\nnext: 1\n",
+    "list_closing_alone": "a:\n  b: [1, 2,\n    3\n  ]\n  c: x\n",
+    "list_with_comments": "a: [1, # one\n\n    'two, 2', \"3\",  # three\n"
+                          "  4.5e+00, .5, 0.]\n",
+    "list_unindented": "a: [1,\n2]\n",
+    "flow_mapping": "calib: {fx: 1.0, fy: 2.0, 'c x': 3, name: cam, n: ~}\n",
+    "flow_mapping_over_lines": "a:\n  calib: {fx: 1.4017e+03,\n"
+                               "    fy: 1.4e+03,\n    flag: yes}\n",
+    "flow_mapping_empty": "a: {}\nb: []\nc: {b: 1}\n",
+    "block_sequence_of_lists": "rows:\n  - [1, 0, 0]\n  - [0, 1,\n"
+                               "     0]\n  - 5\n  - {x: 1}\nk: 2\n",
+    "camera_info": """\
+image_width: 1920
+image_height: 1080
+camera_name: camera0
+camera_matrix:
+  rows: 3
+  cols: 3
+  data: [1400.0, 0.0, 960.0,
+         0.0, 1401.7, 540.0,
+         0.0, 0.0, 1.0]
+distortion_model: plumb_bob
+distortion_coefficients:
+  rows: 1
+  cols: 5
+  data: [-0.05, 0.01, 0.0, 0.0, 0.0]
+rectification_matrix:
+  rows: 3
+  cols: 3
+  data: [1., 0., 0.,
+         0., 1., 0.,
+         0., 0., 1.]
+projection_matrix:
+  rows: 3
+  cols: 4
+  data: [1400.0, 0.0, 960.0, 0.0,
+         0.0, 1401.7, 540.0, 0.0,
+         0.0, 0.0, 1.0, 0.0]
+K: [1400.0, 0.0, 960.0,
+    0.0, 1401.7, 540.0,
+    0.0, 0.0, 1.0]
+D: [-0.05, 0.01, 0.0, 0.0, 0.0]
+"""}
+
+
+@pytest.mark.parametrize("name", sorted(FLOW_YAML))
+def test_yaml_io_flow_collections_against_pyyaml(name):
+    """Flow lists and flow mappings of scalars, on one line or over
+    several, under keys and as block-sequence items: what PyYAML loads."""
+    from f2nerf_tpu_torch.core import yaml_io
+
+    text = FLOW_YAML[name]
+    assert yaml_io.loads(text, block_sequences=True) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", [
+    "a: [1, [2,\n  3]]\n", "a: {b: {c: 1}}\n", "a: {b: [1]}\n",
+    "a: [x\n  y]\n", "a: [1, 'x\n  y']\n", "a: [1, &x 2]\n",
+    "a: {b: !!int 1}\n", "a: [1, 2\nb: 3\n", "a: [1,\n  2] x\n",
+    "a: {b}\n", "a: {b: 1, b: 2}\n", "a: [1,,2]\n", "a: [*x]\n",
+    "a:\n  - [1,\n  - 2]\n"])
+def test_yaml_io_flow_outside_the_subset_raises(text):
+    """Nested flow collections, multi-line strings, anchors, aliases,
+    tags, unclosed collections and keys without values still raise,
+    naming the line."""
+    from f2nerf_tpu_torch.core import yaml_io
+
+    with pytest.raises(ValueError, match="line"):
+        yaml_io.loads(text, block_sequences=True)
+
+
+def test_multi_line_camera_info_converts_as_jax(tmp_path, monkeypatch):
+    """A hand-edited ``camera_info.yaml`` whose matrices span three lines
+    gives the JAX converter's ``cams_meta.tsv``."""
+    out_t, out_j, _ = _extract(tmp_path, monkeypatch)
+    for d in (out_t, out_j):
+        (d / "camera_info.yaml").write_text(FLOW_YAML["camera_info"])
+    convert_pose_tsv_to_f2_format.convert(str(out_t / "pose.tsv"))
+    _script("convert_pose_tsv_to_f2_format").convert(str(out_j / "pose.tsv"))
+    text = (out_t / "cams_meta.tsv").read_text()
+    assert text == (out_j / "cams_meta.tsv").read_text()
+    assert "\t1401.7\t" in text
