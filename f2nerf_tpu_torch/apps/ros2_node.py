@@ -267,6 +267,8 @@ def main(argv=None) -> int:
     ap.add_argument("--resize_factor", type=int, default=8)
     ap.add_argument("--crop_rows", type=int, default=0)
     ap.add_argument("--save_particles_dir", default=None)
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a Chrome trace of frames 10-14 here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -277,7 +279,8 @@ def main(argv=None) -> int:
         LocalizerParam(resize_factor=args.resize_factor),
         device=args.device)
     service = LocalizerService(core,
-                               save_particles_dir=args.save_particles_dir)
+                               save_particles_dir=args.save_particles_dir,
+                               profile_dir=args.profile_dir)
     rclpy.init()
     node = NerfBasedLocalizerNode(
         service, optimization_mode=args.optimization_mode,

@@ -46,14 +46,21 @@ import threading
 import numpy as np
 
 from f2nerf_tpu_torch.localize.localizer import calc_average_pose
+from f2nerf_tpu_torch.utils import trace
 from f2nerf_tpu_torch.utils.image_io import resize_image
 from f2nerf_tpu_torch.utils.metrics import image_score
 
 BASE_SCORE = 100.0  # reference parameter base_score_ (score scale)
+PROFILE_FRAMES = (10, 15)  # the profile window's frames, first to last + 1
 
 
 class LocalizerService:
-    def __init__(self, localizer, save_particles_dir: str | None = None):
+    """The protocol's commands on one localizer. ``profile_dir``: trace
+    localize frames 10 to 14 with ``torch.profiler`` into a Chrome trace
+    there (``utils/trace.Window``), with the program's spans."""
+
+    def __init__(self, localizer, save_particles_dir: str | None = None,
+                 profile_dir: str | pathlib.Path | None = None):
         self.localizer = localizer
         self.lock = threading.Lock()
         self.pose_nerf: np.ndarray | None = None  # 3x4 NeRF frame
@@ -61,6 +68,7 @@ class LocalizerService:
         self.frames = 0
         self.save_particles_dir = save_particles_dir
         self._particles_cnt = 0
+        self._window = trace.Window(profile_dir, PROFILE_FRAMES, "frames")
 
     def _dump_particles(self, particles) -> None:
         """Per-frame particle TSVs in the reference's format
@@ -95,12 +103,19 @@ class LocalizerService:
         return {"ok": False, "error": f"unknown cmd {cmd!r}"}
 
     def _localize(self, req: dict) -> dict:
-        image = np.asarray(req["image"], dtype=np.float32)
-        # the reference node resizes the incoming frame to the render
-        # resolution (nerf_based_localizer.cpp:225-235)
-        h, w = self.localizer.infer_height, self.localizer.infer_width
-        if image.ndim == 3 and image.shape[:2] != (h, w):
-            image = resize_image(image, h, w)
+        with self.lock:
+            self._window.tick(self.frames, self.localizer.device)
+        with trace.span("serve.localize"):
+            return self._localize_frame(req)
+
+    def _localize_frame(self, req: dict) -> dict:
+        with trace.span("serve.resize"):
+            image = np.asarray(req["image"], dtype=np.float32)
+            # the reference node resizes the incoming frame to the render
+            # resolution (nerf_based_localizer.cpp:225-235)
+            h, w = self.localizer.infer_height, self.localizer.infer_width
+            if image.ndim == 3 and image.shape[:2] != (h, w):
+                image = resize_image(image, h, w)
         mode = int(req.get("mode", 0))
         with self.lock:
             if self.pose_nerf is None:
@@ -138,24 +153,28 @@ class LocalizerService:
                      "lr_final": float(res["lr_final"]),
                      "backtracks": int(res["backtracks"])}
 
-        rendered = self.localizer.render_image(new_pose).cpu().numpy()
-        score = image_score(rendered, image.reshape(rendered.shape))
+        with trace.span("serve.render_reply"):
+            rendered = self.localizer.render_image(new_pose).cpu().numpy()
+        with trace.span("serve.score"):
+            score = image_score(rendered, image.reshape(rendered.shape))
 
-        with self.lock:
-            self.pose_nerf = new_pose
-            self.previous_score = score
-            self.frames += 1
-        # the ROS2 node's log line; scripts/analyze_localizer_log.py parses it
-        print(f"score = {score}", flush=True)
-        out = {
-            "ok": True,
-            "pose": self.localizer.camera2world(new_pose).tolist(),
-            "score": float(score),
-            "noise_coeff": noise_coeff,
-            **extra,
-        }
-        if req.get("return_image"):
-            out["rendered"] = rendered.tolist()
+        with trace.span("serve.reply"):
+            with self.lock:
+                self.pose_nerf = new_pose
+                self.previous_score = score
+                self.frames += 1
+            # the ROS2 node's log line; scripts/analyze_localizer_log.py
+            # parses it
+            print(f"score = {score}", flush=True)
+            out = {
+                "ok": True,
+                "pose": self.localizer.camera2world(new_pose).tolist(),
+                "score": float(score),
+                "noise_coeff": noise_coeff,
+                **extra,
+            }
+            if req.get("return_image"):
+                out["rendered"] = rendered.tolist()
         return out
 
 
@@ -184,11 +203,13 @@ class Server(socketserver.ThreadingTCPServer):
 
 
 def serve(localizer, host: str = "127.0.0.1", port: int = 0,
-          save_particles_dir: str | None = None) -> Server:
+          save_particles_dir: str | None = None,
+          profile_dir: str | None = None) -> Server:
     """Start the service; returns the (already listening) server. Call
     server.serve_forever() (blocking) or drive it from a thread."""
     srv = Server((host, port), _Handler)
-    srv.service = LocalizerService(localizer, save_particles_dir)  # type: ignore
+    srv.service = LocalizerService(  # type: ignore
+        localizer, save_particles_dir, profile_dir)
     srv.shutdown_requested = False  # type: ignore
     return srv
 
@@ -203,6 +224,8 @@ def main() -> None:
     ap.add_argument("--resize_factor", type=int, default=8)
     ap.add_argument("--save_particles_dir", default=None,
                     help="dump per-frame particle TSVs here")
+    ap.add_argument("--profile_dir", default=None,
+                    help="write a Chrome trace of frames 10-14 here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -213,7 +236,8 @@ def main() -> None:
         LocalizerParam(resize_factor=args.resize_factor),
         device=args.device)
     srv = serve(core, args.host, args.port,
-                save_particles_dir=args.save_particles_dir)
+                save_particles_dir=args.save_particles_dir,
+                profile_dir=args.profile_dir)
     print(f"localizer service on {srv.server_address}")
     srv.serve_forever()
 

@@ -45,6 +45,7 @@ from f2nerf_tpu_torch.core.device import resolve_device
 from f2nerf_tpu_torch.models import hash_field, renderer
 from f2nerf_tpu_torch.parallel.mesh import (DataMesh, all_reduce_sum,
                                             replicate, shard_batch)
+from f2nerf_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -126,18 +127,19 @@ def calc_average_pose(particles: list[Particle]) -> np.ndarray:
     """Weighted position + sign-aligned UNWEIGHTED quaternion mean
     (the reference's rotation average ignores the particle weights,
     src/localizer.cpp:254-281,283-316)."""
-    avg_pos = sum(p.weight * p.pose[:3, 3] for p in particles)
-    quats = [matrix_to_quat_xyzw(
-                 np.asarray(p.pose[:3, :3], dtype=np.float64))
-             for p in particles]
-    front = quats[0]
-    acc = np.zeros(4)
-    for q in quats:
-        acc += -q if np.dot(q, front) < 0 else q
-    acc /= len(quats)
-    out = np.zeros((3, 4), dtype=np.float32)
-    out[:3, :3] = quat_xyzw_to_matrix(acc)
-    out[:3, 3] = avg_pos
+    with trace.span("localize.fuse"):
+        avg_pos = sum(p.weight * p.pose[:3, 3] for p in particles)
+        quats = [matrix_to_quat_xyzw(
+                     np.asarray(p.pose[:3, :3], dtype=np.float64))
+                 for p in particles]
+        front = quats[0]
+        acc = np.zeros(4)
+        for q in quats:
+            acc += -q if np.dot(q, front) < 0 else q
+        acc /= len(quats)
+        out = np.zeros((3, 4), dtype=np.float32)
+        out[:3, :3] = quat_xyzw_to_matrix(acc)
+        out[:3, 3] = avg_pos
     return out
 
 
@@ -290,31 +292,33 @@ class Localizer:
                        ) -> np.ndarray:
         """One batched render of render_pixel_num random pixels for all
         poses -> normalized weights (src/localizer.cpp:176-252)."""
-        h, w = self.infer_height, self.infer_width
-        pix = min(self.param.render_pixel_num, h * w)
-        sel = self._rng.choice(h * w, size=pix, replace=False)
-        i = (sel // w).astype(np.float32)
-        j = (sel % w).astype(np.float32)
-        ij = torch.as_tensor(np.stack([i, j], axis=-1), device=self.device)
+        with trace.span("localize.weigh"):
+            h, w = self.infer_height, self.infer_width
+            pix = min(self.param.render_pixel_num, h * w)
+            sel = self._rng.choice(h * w, size=pix, replace=False)
+            i = (sel // w).astype(np.float32)
+            j = (sel % w).astype(np.float32)
+            ij = torch.as_tensor(np.stack([i, j], axis=-1),
+                                 device=self.device)
 
-        poses_t = torch.as_tensor(np.asarray(poses, dtype=np.float32),
-                                  device=self.device)         # [P, 3, 4]
-        rays_o, rays_d = rays_from_pose(
-            poses_t[:, None], self.intrinsic[None, None], ij[None])
-        p = poses_t.shape[0]
-        colors, _ = renderer.render_rays_chunked(
-            self.params, rays_o.reshape(p * pix, 3),
-            rays_d.reshape(p * pix, 3), self.cfg.model, chunk=65536,
-            occ_vals=self.occ_vals, consts=self.consts, mesh=self.mesh)
-        pred = torch.clamp(colors.reshape(p, pix, 3), 0.0, 1.0)
-        gt = torch.as_tensor(
-            np.asarray(image, dtype=np.float32).reshape(h * w, 3)[sel],
-            device=self.device)[None]                         # [1, pix, 3]
-        loss = torch.sum(torch.mean((pred - gt) ** 2, dim=-1), dim=-1)
-        # weights (pix/loss)^5 normalized (src/localizer.cpp:237-247), in
-        # log space: the raw power overflows fp32 when a loss is ~0
-        logit = -5.0 * torch.log(loss + 1e-6)
-        return torch.softmax(logit, dim=0).cpu().numpy()
+            poses_t = torch.as_tensor(np.asarray(poses, dtype=np.float32),
+                                      device=self.device)     # [P, 3, 4]
+            rays_o, rays_d = rays_from_pose(
+                poses_t[:, None], self.intrinsic[None, None], ij[None])
+            p = poses_t.shape[0]
+            colors, _ = renderer.render_rays_chunked(
+                self.params, rays_o.reshape(p * pix, 3),
+                rays_d.reshape(p * pix, 3), self.cfg.model, chunk=65536,
+                occ_vals=self.occ_vals, consts=self.consts, mesh=self.mesh)
+            pred = torch.clamp(colors.reshape(p, pix, 3), 0.0, 1.0)
+            gt = torch.as_tensor(
+                np.asarray(image, dtype=np.float32).reshape(h * w, 3)[sel],
+                device=self.device)[None]                     # [1, pix, 3]
+            loss = torch.sum(torch.mean((pred - gt) ** 2, dim=-1), dim=-1)
+            # weights (pix/loss)^5 normalized (src/localizer.cpp:237-247),
+            # in log space: the raw power overflows fp32 when a loss is ~0
+            logit = -5.0 * torch.log(loss + 1e-6)
+            return torch.softmax(logit, dim=0).cpu().numpy()
 
     def optimize_pose_by_random_search(
             self, initial_pose: np.ndarray, image: np.ndarray,
@@ -327,14 +331,15 @@ class Localizer:
         rot_std = np.array([p.noise_rotation_y, p.noise_rotation_z,
                             p.noise_rotation_x]) * noise_coeff
 
-        poses = [np.asarray(initial_pose, dtype=np.float32)]
-        for _ in range(particle_num - 1):
-            q = np.asarray(initial_pose, dtype=np.float32).copy()
-            q[:3, 3] += self._rng.normal(0.0, pos_std)
-            theta = np.deg2rad(self._rng.normal(0.0, rot_std))
-            q[:3, :3] = _euler_rotations(theta) @ q[:3, :3]
-            poses.append(q)
-        poses = np.stack(poses)
+        with trace.span("localize.draw"):
+            poses = [np.asarray(initial_pose, dtype=np.float32)]
+            for _ in range(particle_num - 1):
+                q = np.asarray(initial_pose, dtype=np.float32).copy()
+                q[:3, 3] += self._rng.normal(0.0, pos_std)
+                theta = np.deg2rad(self._rng.normal(0.0, rot_std))
+                q[:3, :3] = _euler_rotations(theta) @ q[:3, :3]
+                poses.append(q)
+            poses = np.stack(poses)
         weights = self.evaluate_poses(poses, image)
         return [Particle(pose=poses[i], weight=float(weights[i]))
                 for i in range(len(poses))]
@@ -372,7 +377,7 @@ class Localizer:
         pixels (:meth:`_frame`), and the gradient and the loss are summed
         over the ranks."""
         ij, gt, valid, n = frame
-        with torch.enable_grad():
+        with trace.span("localize.pose_grad"), torch.enable_grad():
             rays_o, rays_d = rays_from_pose(pose[None], self.intrinsic[None],
                                             ij)
             res = renderer.render(self.params, rays_o, rays_d,

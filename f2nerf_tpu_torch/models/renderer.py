@@ -29,6 +29,7 @@ from f2nerf_tpu_torch.ops.composite import (composite, composite_weights,
                                             density_activation,
                                             exclusive_cumsum)
 from f2nerf_tpu_torch.parallel.mesh import DataMesh, all_gather_rows
+from f2nerf_tpu_torch.utils import trace
 
 Params = dict[str, Any]
 
@@ -107,19 +108,20 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
         bg_color = noise.bg
     else:
         bg_color = torch.full((r, 3), 0.5, device=rays_o.device)
-    if cfg.sampler_mode == "occ":
-        if occ_vals is None:
-            raise ValueError("sampler_mode='occ' requires occ_vals")
-        smp = occupancy.sample_rays_occ(
-            rays_o, rays_d, occ_vals, cfg,
-            rank_u=noise.rank if train else None,
-            within_u=noise.within if train else None,
-            explore=noise.explore if train else None)
-        explore = smp.explore
-    else:
-        smp = sampler.sample_rays(rays_o, rays_d, cfg,
-                                  u=noise.march if train else None)
-        explore = None
+    if cfg.sampler_mode == "occ" and occ_vals is None:
+        raise ValueError("sampler_mode='occ' requires occ_vals")
+    with trace.span("render.sample"):
+        if cfg.sampler_mode == "occ":
+            smp = occupancy.sample_rays_occ(
+                rays_o, rays_d, occ_vals, cfg,
+                rank_u=noise.rank if train else None,
+                within_u=noise.within if train else None,
+                explore=noise.explore if train else None)
+            explore = smp.explore
+        else:
+            smp = sampler.sample_rays(rays_o, rays_d, cfg,
+                                      u=noise.march if train else None)
+            explore = None
     if (train and cfg.sampler_mode == "dense" and cfg.dense_two_pass
             and cfg.n_samples % 8 == 0):
         ray_emb = None if emb_idx is None else params["app_emb"][emb_idx]
@@ -139,23 +141,29 @@ def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,
                     level_weights, emb=None, consts=None) -> RenderResult:
     """Field query + shading + masked compositing over [R, S] samples."""
     r, s = pts.shape[0], pts.shape[1]
-    feat = hash_field.query_rays(params["field"], pts, cfg,
-                                 level_weights=level_weights,
-                                 consts=_field_consts(consts))  # [R, S, F]
-    sigma = density_activation(feat[..., 0], cfg.density_shift)
-    # shading feature: [1, feat_1..F-1] (renderer.cpp:95-99)
-    shading_feat = torch.cat([torch.ones_like(feat[..., :1]),
-                              feat[..., 1:]], dim=-1)
-    if emb is not None:
-        shading_feat = shading_feat + emb
-    dirs = ray_dirs[:, None, :].expand(r, s, 3)
-    colors = sh_shader.query(params["shader"], shading_feat, dirs, cfg)
-    # where(dt > 0) rather than a product: sigma is unbounded and
-    # inf * 0 would put NaN into the compositing cumsum
-    sec_density = torch.where(dt > 0.0, sigma * dt,
-                              torch.zeros((), device=dt.device))
-    rgb, depth, weights, mask = composite(sec_density, colors, t, bg_color,
-                                          cfg.trans_eps)
+    with trace.span("render.field"):
+        feat = hash_field.query_rays(params["field"], pts, cfg,
+                                     level_weights=level_weights,
+                                     consts=_field_consts(consts))
+        sigma = density_activation(feat[..., 0], cfg.density_shift)
+    with trace.span("render.shade"):
+        # shading feature: [1, feat_1..F-1] (renderer.cpp:95-99)
+        shading_feat = torch.cat([torch.ones_like(feat[..., :1]),
+                                  feat[..., 1:]], dim=-1)
+        if emb is not None:
+            shading_feat = shading_feat + emb
+        dirs = ray_dirs[:, None, :].expand(r, s, 3)
+        colors = sh_shader.query(params["shader"], shading_feat, dirs, cfg)
+    with trace.span("render.composite"):
+        # where(dt > 0) rather than a product: sigma is unbounded and
+        # inf * 0 would put NaN into the compositing cumsum
+        sec_density = torch.where(dt > 0.0, sigma * dt,
+                                  torch.zeros((), device=dt.device))
+        rgb, depth, weights, mask = composite(sec_density, colors, t,
+                                              bg_color, cfg.trans_eps)
+        if trace.enabled():
+            trace.count("render.live", ((dt > 0.0) & mask).sum())
+            trace.count("render.slots", dt.numel())
     return RenderResult(colors=rgb, depths=depth, weights=weights,
                         mask=mask, t=t, dt=dt, sec_density=sec_density,
                         explore=explore)
@@ -197,7 +205,7 @@ def _render_two_pass(params, smp, bg_color, cfg, level_weights, ray_emb,
     r, s = smp.pts.shape[0], smp.pts.shape[1]
     n = r * s
     fconsts = _field_consts(consts)
-    with torch.no_grad():
+    with trace.span("render.field"), torch.no_grad():
         # run dedup off in pass 1, as in JAX: no backward to compress
         feat1 = hash_field.query_rays(
             params["field"], smp.pts,
@@ -207,8 +215,10 @@ def _render_two_pass(params, smp, bg_color, cfg, level_weights, ray_emb,
         sec1 = torch.where(smp.dt > 0.0, sigma1 * smp.dt,
                            torch.zeros((), device=smp.dt.device))
         mask1 = torch.exp(-exclusive_cumsum(sec1)) > cfg.trans_eps
-    flat_mask = mask1.reshape(n)
-    n_surv = int(flat_mask.sum())                  # the host sync
+        # pass 1's slots are encoded, never composited
+        trace.count("render.slots", n)
+        flat_mask = mask1.reshape(n)
+        n_surv = int(flat_mask.sum())                  # the host sync
     nb = two_pass_bucket(n, n_surv)
     if nb == n:
         emb = None if ray_emb is None else ray_emb[:, None, :]
@@ -216,36 +226,44 @@ def _render_two_pass(params, smp, bg_color, cfg, level_weights, ray_emb,
                                None, bg_color, cfg, level_weights, emb,
                                consts)
 
-    # survivors first, ray-major order kept: a stable partition of the
-    # flat mask
-    cum_in = torch.cumsum(flat_mask, 0)
-    cum_out = torch.cumsum(~flat_mask, 0)
-    pos = torch.where(flat_mask, cum_in - 1, n_surv + cum_out - 1)
-    order = torch.empty(n, dtype=torch.int64, device=pos.device)
-    order[pos] = torch.arange(n, device=pos.device)
-    idx = order[:nb]                                           # [NB]
-    ray_id = idx // s
-    valid = torch.arange(nb, device=idx.device) < n_surv
-    pts = smp.pts.reshape(n, 3)[idx]
-    dt = torch.where(valid, smp.dt.reshape(n)[idx],
-                     torch.zeros((), device=idx.device))
-    feat = hash_field.query_compacted(params["field"], pts, cfg,
-                                      level_weights=level_weights,
-                                      consts=fconsts)          # [NB, F]
-    sigma = density_activation(feat[:, 0], cfg.density_shift)
-    shading_feat = torch.cat([torch.ones_like(feat[:, :1]), feat[:, 1:]],
-                             dim=-1)
-    if ray_emb is not None:
-        shading_feat = shading_feat + ray_emb[ray_id]
-    colors = sh_shader.query(params["shader"], shading_feat[:, None, :],
-                             smp.dirs[ray_id][:, None, :], cfg)[:, 0]
-    sec = torch.where(dt > 0.0, sigma * dt, torch.zeros((), device=dt.device))
-    # back to [R, S]: zero outside the survivors, exactly
-    sec_full = sec.new_zeros(n).index_put((idx,), sec).reshape(r, s)
-    colors_full = colors.new_zeros((n, 3)).index_put(
-        (idx,), colors).reshape(r, s, 3)
-    rgb, depth, weights = composite_weights(sec_full, colors_full, smp.t,
-                                            bg_color)
+    with trace.span("render.field"):
+        # survivors first, ray-major order kept: a stable partition of
+        # the flat mask
+        cum_in = torch.cumsum(flat_mask, 0)
+        cum_out = torch.cumsum(~flat_mask, 0)
+        pos = torch.where(flat_mask, cum_in - 1, n_surv + cum_out - 1)
+        order = torch.empty(n, dtype=torch.int64, device=pos.device)
+        order[pos] = torch.arange(n, device=pos.device)
+        idx = order[:nb]                                       # [NB]
+        ray_id = idx // s
+        valid = torch.arange(nb, device=idx.device) < n_surv
+        pts = smp.pts.reshape(n, 3)[idx]
+        dt = torch.where(valid, smp.dt.reshape(n)[idx],
+                         torch.zeros((), device=idx.device))
+        feat = hash_field.query_compacted(params["field"], pts, cfg,
+                                          level_weights=level_weights,
+                                          consts=fconsts)      # [NB, F]
+        sigma = density_activation(feat[:, 0], cfg.density_shift)
+    with trace.span("render.shade"):
+        shading_feat = torch.cat([torch.ones_like(feat[:, :1]),
+                                  feat[:, 1:]], dim=-1)
+        if ray_emb is not None:
+            shading_feat = shading_feat + ray_emb[ray_id]
+        colors = sh_shader.query(params["shader"], shading_feat[:, None, :],
+                                 smp.dirs[ray_id][:, None, :], cfg)[:, 0]
+    with trace.span("render.composite"):
+        sec = torch.where(dt > 0.0, sigma * dt,
+                          torch.zeros((), device=dt.device))
+        # back to [R, S]: zero outside the survivors, exactly
+        sec_full = sec.new_zeros(n).index_put((idx,), sec).reshape(r, s)
+        colors_full = colors.new_zeros((n, 3)).index_put(
+            (idx,), colors).reshape(r, s, 3)
+        rgb, depth, weights = composite_weights(sec_full, colors_full,
+                                                smp.t, bg_color)
+        if trace.enabled():
+            # pass 2's live slots are its survivors (dt > 0 there)
+            trace.count("render.live", (dt > 0.0).sum())
+            trace.count("render.slots", nb)
     return RenderResult(colors=rgb, depths=depth, weights=weights,
                         mask=mask1, t=smp.t, dt=smp.dt, sec_density=sec_full,
                         explore=None)

@@ -32,6 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from f2nerf_tpu_torch.utils import trace
+
 WARP_ROW = 128  # lane-padded packed region row
 
 
@@ -201,7 +203,7 @@ def warp_points(points: torch.Tensor, tables: WarpTables,
     order. Only the 20n+3 used columns of the rows are gathered, into a
     component-major [20n+3, P, k] block.
     """
-    with torch.profiler.record_function("warp_points"):
+    with trace.span("warp_points"):
         n = tables.n_cams
         m = tables.anchors.shape[0]
         cols = tables.rows[:, :20 * n + 3].t()                # [20n+3, M]

@@ -48,6 +48,7 @@ import torch
 from f2nerf_tpu_torch.kernels.trilinear import (ROW_PAD, trilinear_bwd,
                                                 trilinear_bwd_frac,
                                                 trilinear_fwd)
+from f2nerf_tpu_torch.utils import trace
 
 BLOCK = 4            # cells per page axis
 HALO = BLOCK + 1     # haloed page axis
@@ -403,7 +404,7 @@ def paged_encode_rays(points: torch.Tensor, pages: torch.Tensor,
     if haloed is None:
         haloed = halo_pages(pages, meta).to(compute_dtype)
     page_idx, local, frac = page_indices(points.reshape(r * s, 3), meta)
-    with torch.profiler.record_function("compute_runs"):
+    with trace.span("compute_runs"):
         for lvl, b in enumerate(budgets):
             if not b:
                 continue

@@ -21,8 +21,9 @@ each rank writes its own rows (``x + 0 == x``, so it is exact): one code
 path on NCCL, on gloo with CPU tensors and on gloo with CUDA tensors,
 where gloo offers ``broadcast`` and ``all_reduce`` only.
 
-Every collective runs inside ``record_function("mesh/all_reduce")`` (or
-``"mesh/broadcast"``), which a profile reads for the collective's share.
+Every collective runs inside the span ``mesh/all_reduce`` (or
+``mesh/broadcast``; ``utils/trace.py``), which a profile reads for the
+collective's share.
 
 ``data_sharding`` and ``replicated`` (JAX ``NamedSharding``s) have no
 counterpart: a rank's tensors are its own, and placement is the slicing
@@ -40,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from f2nerf_tpu_torch.core.device import resolve_device
+from f2nerf_tpu_torch.utils import trace
 
 DATA_AXIS = "data"
 # a collective that waits longer fails instead of hanging the run
@@ -148,7 +150,7 @@ def replicate(mesh: DataMesh | None, tree: Any) -> Any:
     if mesh is None or mesh.group is None:
         return tree
     src = dist.get_global_rank(mesh.group, 0)
-    with torch.no_grad(), torch.profiler.record_function("mesh/broadcast"):
+    with torch.no_grad(), trace.span("mesh/broadcast"):
         for t in _tensors(tree):
             buf = t if t.device == mesh.device else t.to(mesh.device)
             dist.broadcast(buf, src=src, group=mesh.group)
@@ -161,7 +163,7 @@ def all_reduce_sum(mesh: DataMesh | None, t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ranks, in place; returns ``t``. Every rank
     gets the same values."""
     if mesh is not None and mesh.group is not None:
-        with torch.profiler.record_function("mesh/all_reduce"):
+        with trace.span("mesh/all_reduce"):
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 

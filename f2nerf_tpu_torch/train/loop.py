@@ -58,6 +58,7 @@ from f2nerf_tpu_torch.parallel.mesh import (DataMesh, barrier, is_writer,
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
 from f2nerf_tpu_torch.train.step import StepNoise, draw_noise, make_train_step
+from f2nerf_tpu_torch.utils import trace
 from f2nerf_tpu_torch.utils.image_io import write_image
 
 
@@ -121,10 +122,10 @@ class Trainer:
             device if device is not None or mesh is None else mesh.device)
         self.result_dir = (pathlib.Path(result_dir)
                            if result_dir is not None else None)
-        self.profile_dir = (pathlib.Path(profile_dir) if profile_dir
-                            else None)
-        self.profile_steps = profile_steps
-        self._profiler = None
+        rank = (f"_rank{mesh.rank}"
+                if mesh is not None and mesh.size > 1 else "")
+        self._window = trace.Window(profile_dir, profile_steps,
+                                    "train_steps", rank)
         # training seconds across run() calls in this process: the Time
         # column stays monotonic when a driver trains in chunks
         self._elapsed_s = 0.0
@@ -298,7 +299,7 @@ class Trainer:
         last_metrics = None
 
         while self.step < end:
-            self._profile_window()
+            self._window.tick(self.step, self.device)
             cam_idx, ij, gt = self.next_batch()
             self.occ_grid, metrics = self._step_fn(
                 self.params, self.occ_grid, self.poses, self.intrinsics,
@@ -320,30 +321,6 @@ class Trainer:
             last_metrics = self._report(pending, t0)
         self._elapsed_s += time.monotonic() - t0
         return last_metrics or {}
-
-    def _profile_window(self) -> None:
-        if self.profile_dir is None:
-            return
-        from torch.profiler import ProfilerActivity, profile
-
-        from f2nerf_tpu_torch.utils.timer import device_sync
-
-        if self.step == self.profile_steps[0] and self._profiler is None:
-            acts = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            self._profiler = profile(activities=acts)
-            self._profiler.__enter__()
-        elif self.step == self.profile_steps[1] and self._profiler is not None:
-            device_sync(self.params)
-            self._profiler.__exit__(None, None, None)
-            self.profile_dir.mkdir(parents=True, exist_ok=True)
-            rank = (f"_rank{self.mesh.rank}"
-                    if self.mesh is not None and self.mesh.size > 1 else "")
-            self._profiler.export_chrome_trace(
-                str(self.profile_dir / f"train_steps_{self.profile_steps[0]}"
-                    f"_{self.profile_steps[1]}{rank}.json"))
-            self._profiler = None
 
     def _report(self, pending: list, t0: float) -> dict:
         # every queued step's metrics in one device -> host copy

@@ -58,6 +58,7 @@ from f2nerf_tpu_torch.ops.composite import distortion_loss, weight_variance
 from f2nerf_tpu_torch.parallel.mesh import (DataMesh, all_reduce_sum,
                                             shard_batch)
 from f2nerf_tpu_torch.train.optim import Optimizer
+from f2nerf_tpu_torch.utils import trace
 
 
 class StepMetrics(NamedTuple):
@@ -362,14 +363,18 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
                            else noise.gs_points[j]),
                 **{name: x[sl] for name, x in _per_ray(noise)})
             optimizer.zero_grad()
-            loss, m = loss_fn(params, poses, intrinsics, cam_idx[sl], ij[sl],
-                              gt[sl], bnoise, step, occ_vals, consts)
-            (loss * scale).backward()
-            stack[first + j] = torch.cat(_flat_grads(optimizer)
-                                         + [torch.stack(m[:4]).detach()])
-        all_reduce_sum(mesh, stack)
-        _set_grads(optimizer, torch.sum(stack[:, :n_params], dim=0)
-                   / n_blocks)
+            with trace.span("step.forward"):
+                loss, m = loss_fn(params, poses, intrinsics, cam_idx[sl],
+                                  ij[sl], gt[sl], bnoise, step, occ_vals,
+                                  consts)
+            with trace.span("step.backward"):
+                (loss * scale).backward()
+                stack[first + j] = torch.cat(
+                    _flat_grads(optimizer) + [torch.stack(m[:4]).detach()])
+        with trace.span("step.backward"):
+            all_reduce_sum(mesh, stack)
+            _set_grads(optimizer, torch.sum(stack[:, :n_params], dim=0)
+                       / n_blocks)
         return _metrics(*torch.mean(stack[:, n_params:], dim=0))
 
     def train_step(params: dict[str, Any], occ_grid: torch.Tensor | None,
@@ -382,46 +387,58 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
         if n_blocks > 0 and n_rays % n_blocks:
             raise ValueError(f"grad_blocks={n_blocks} must divide "
                              f"rays/step={n_rays}")
-        if noise is None:
-            noise = draw_noise(cfg, step, n_rays, poses.device)
-        noise = shard_noise(mesh, noise)
+        with trace.span("step"):
+            return _phases(params, occ_grid, poses, intrinsics, step,
+                           cam_idx, ij, gt, noise, consts, n_rays)
+
+    def _phases(params, occ_grid, poses, intrinsics, step, cam_idx, ij, gt,
+                noise, consts, n_rays):
+        with trace.span("step.noise"):
+            if noise is None:
+                noise = draw_noise(cfg, step, n_rays, poses.device)
+            noise = shard_noise(mesh, noise)
         occ_vals = None
         if use_occ:
-            phase = refresh_phase(cfg, step)
-            if phase is not None:
-                with torch.no_grad():
-                    occ_grid = occupancy.update_grid(
-                        occ_grid,
-                        lambda pts: renderer.density_at(
-                            params, pts, cfg.model, contracted=True,
-                            consts=consts),
-                        cfg.model, phase=phase, u=noise.refresh)
-            # sigma-valued occupancy; warmup forces everything occupied
-            occ_vals = occupancy.occ_values(
-                occ_grid, cfg.model,
-                warmup=step < cfg.model.occ_warmup_steps)
+            with trace.span("step.refresh"):
+                phase = refresh_phase(cfg, step)
+                if phase is not None:
+                    with torch.no_grad():
+                        occ_grid = occupancy.update_grid(
+                            occ_grid,
+                            lambda pts: renderer.density_at(
+                                params, pts, cfg.model, contracted=True,
+                                consts=consts),
+                            cfg.model, phase=phase, u=noise.refresh)
+                # sigma-valued occupancy; warmup forces everything occupied
+                occ_vals = occupancy.occ_values(
+                    occ_grid, cfg.model,
+                    warmup=step < cfg.model.occ_warmup_steps)
         if n_blocks > 0:
             metrics = block_grads(params, poses, intrinsics, step, cam_idx,
                                   ij, gt, noise, occ_vals, consts)
         else:
             optimizer.zero_grad()
-            loss, metrics = loss_fn(params, poses, intrinsics, cam_idx, ij,
-                                    gt, noise, step, occ_vals, consts)
-            # static loss scaling (reference fp16 kernels' x128); metrics
-            # stay unscaled
-            (loss * scale).backward()
-            if mesh is not None:
-                # the grads and the metrics' shares summed in one call
-                flat = all_reduce_sum(mesh, torch.cat(
-                    _flat_grads(optimizer)
-                    + [torch.stack(metrics[:4]).detach()]))
-                _set_grads(optimizer, flat[:-4])
-                metrics = _metrics(*flat[-4:])
-        if scale != 1.0:
-            for p in optimizer.named.values():
-                if p.grad is not None:
-                    p.grad.div_(scale)
-        optimizer.step()
+            with trace.span("step.forward"):
+                loss, metrics = loss_fn(params, poses, intrinsics, cam_idx,
+                                        ij, gt, noise, step, occ_vals,
+                                        consts)
+            with trace.span("step.backward"):
+                # static loss scaling (reference fp16 kernels' x128);
+                # metrics stay unscaled
+                (loss * scale).backward()
+                if mesh is not None:
+                    # the grads and the metrics' shares summed in one call
+                    flat = all_reduce_sum(mesh, torch.cat(
+                        _flat_grads(optimizer)
+                        + [torch.stack(metrics[:4]).detach()]))
+                    _set_grads(optimizer, flat[:-4])
+                    metrics = _metrics(*flat[-4:])
+        with trace.span("step.optimizer"):
+            if scale != 1.0:
+                for p in optimizer.named.values():
+                    if p.grad is not None:
+                        p.grad.div_(scale)
+            optimizer.step()
         return occ_grid, StepMetrics(*(t.detach() for t in metrics))
 
     return train_step

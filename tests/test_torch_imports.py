@@ -46,7 +46,7 @@ def test_port_module_list_is_complete():
     assert "f2nerf_tpu_torch.train.optim" in PORT_MODULES
     for name in ("data.dataset", "data.synthetic", "data.native_loader",
                  "train.loop", "train.checkpoint", "apps.main",
-                 "core.yaml_io", "utils.timer", "models.warp",
+                 "core.yaml_io", "utils.trace", "models.warp",
                  "apps.ros2_node", "ops.hash_encode", "utils.lpips",
                  "utils.undistort", "tools", "tools.common", "tools.eval",
                  "tools.make_synthetic_dataset", "tools.quality_run",

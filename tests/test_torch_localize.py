@@ -163,6 +163,30 @@ def test_service_mode0_request(scene):
     assert st["previous_score"] == rt["score"]
 
 
+def test_service_profile_window(scene, tmp_path):
+    """profile_dir: localize frames 10-14 in one Chrome trace, each with
+    the service's, the localizer's and the renderer's spans; no other
+    frame is traced."""
+    _, tl = scene["make"](13)
+    ts = tserve.LocalizerService(tl, profile_dir=tmp_path / "prof")
+    world = tl.camera2world(scene["pose0"])
+    assert ts.handle({"cmd": "init_pose", "pose": world.tolist()})["ok"]
+    req = {"cmd": "localize", "image": scene["image"], "mode": 0,
+           "particle_num": 4}
+    for _ in range(tserve.PROFILE_FRAMES[1] + 1):
+        assert ts.handle(req)["ok"]
+    traces = list((tmp_path / "prof").glob("*.json"))
+    assert [p.name for p in traces] == ["frames_10_15.json"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for name in ("serve.localize", "serve.resize", "localize.draw",
+                 "localize.weigh", "localize.fuse", "serve.render_reply",
+                 "serve.score", "serve.reply"):
+        assert names.count(name) == 5, name
+    # the particles' render and the reply's
+    assert names.count("render.field") == 10
+
+
 def _jax_pose_loss_and_grad(s, pose):
     """jax.value_and_grad of the differential loss, composed from the
     JAX package's public pieces (rays_from_pose, a VALIDATE render),

@@ -21,6 +21,7 @@ Resume is bitwise; the recovery scenarios are those of
 """
 
 import dataclasses
+import json
 import re
 
 import jax
@@ -280,13 +281,19 @@ def test_auto_sample_near(tiny_cfg, sphere_ds):
 
 def test_profiler_window(tiny_cfg, sphere_ds, tmp_path):
     """profile_dir: steps profile_steps[0] .. profile_steps[1] traced with
-    torch.profiler into one Chrome trace."""
+    torch.profiler into one Chrome trace, which holds the step's spans
+    (utils/trace.py) for each traced step."""
     tr = TTrainer(_tcfg(tiny_cfg), _port_ds(sphere_ds), device="cpu",
                   profile_dir=tmp_path / "prof", profile_steps=(1, 3))
     tr.run(4)
     traces = list((tmp_path / "prof").glob("*.json"))
     assert [p.name for p in traces] == ["train_steps_1_3.json"]
-    assert traces[0].stat().st_size > 0
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for name in ("step", "step.noise", "step.forward", "step.backward",
+                 "step.optimizer", "render.sample", "render.field",
+                 "render.shade", "render.composite"):
+        assert names.count(name) == 2, name
 
 
 def test_trainer_needs_a_card_by_default(tiny_cfg, sphere_ds):
@@ -294,23 +301,3 @@ def test_trainer_needs_a_card_by_default(tiny_cfg, sphere_ds):
         pytest.skip("a CUDA device is present: the default is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TTrainer(_tcfg(tiny_cfg), _port_ds(sphere_ds))
-
-
-def test_timer_utilities():
-    """utils/timer.py: the scope prints its time; device_sync waits only
-    on CUDA tensors (none here); StepTimer keeps an EMA."""
-    from f2nerf_tpu_torch.utils import timer
-
-    lines = []
-    with timer.scope_watch("scope", sync_on={"a": [torch.ones(2)]},
-                           printer=lines.append):
-        pass
-    assert len(lines) == 1 and lines[0].startswith("[scope] ")
-    timer.device_sync({"x": torch.zeros(1), "y": (torch.ones(1),)})
-    st = timer.StepTimer(alpha=0.5)
-    st.tic()
-    first = st.toc()
-    assert st.ema == first >= 0.0
-    st.tic()
-    st.toc()
-    assert st.ema >= 0.0 and timer.Timer().elapsed_seconds() >= 0.0
