@@ -226,6 +226,12 @@ Phases (each passes or raises; the script exits 0 only if all pass):
    their losses and weights. Launches per sub-path ``entry/{default,
    noqm,warp,dense,quick,cli,render,dry_dense,dry_occ,dry_flagship,
    dry_localize,dry_gloo2}``.
+19. The frame's resize (``resize_phase``; ``kernels/resize.py``): the
+   ``resize_aa`` kernel on random 850x1920 frames bit for bit
+   ``resize_image``, its time L2 flushed beside its bound, the plain
+   version's and ``resize_image``'s host ms, and the service's whole
+   resize on the card (the frame's copy, the kernel, the result's copy
+   back) on the host clock.
 
 Run dedup (``encode_dedup``, on by default) runs in phases 3-5 and 10;
 after phases 3-5, and inside phase 10, it is also switched off and on in
@@ -295,7 +301,7 @@ from f2nerf_tpu_torch.core.config import Config, ModelConfig
 from f2nerf_tpu_torch.data.dataset import load_dataset, save_dataset
 from f2nerf_tpu_torch.data.synthetic import (make_corridor_dataset,
                                              make_textured_dataset)
-from f2nerf_tpu_torch.kernels import build, trilinear
+from f2nerf_tpu_torch.kernels import build, resize, trilinear
 from f2nerf_tpu_torch.localize.localizer import Localizer, LocalizerParam
 from f2nerf_tpu_torch.models import hash_field, occupancy, renderer
 from f2nerf_tpu_torch.models.warp import build_warp, warp_consts
@@ -397,6 +403,58 @@ def cuda_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median of ``reps`` host-clock timings of ``fn()`` after one call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def resize_phase(seed: int, dev: torch.device) -> dict:
+    """The node frame's resize to the render size: ``resize_aa`` against
+    ``resize_image`` on 4 random frames, bit for bit; the kernel L2
+    flushed (median of 20) beside its bound (the frame read once, the
+    result written once); ``resize_image`` and the plain version on the
+    host; the service's resize on the card as ``LocalizerService`` runs
+    it (a pageable copy of the frame, the kernel, the copy back), and the
+    frame's copy alone."""
+    rng = np.random.default_rng(seed)
+    h, w = FRAME_H // RESIZE, FRAME_W // RESIZE
+    imgs = [rng.random((FRAME_H, FRAME_W, 3), dtype=np.float32)
+            for _ in range(4)]
+    for img in imgs:
+        got = resize.resize_aa(torch.from_numpy(img).to(dev), h, w)
+        bad = int((got.cpu().numpy() != resize_image(img, h, w)).sum())
+        if bad:
+            raise RuntimeError(f"resize_aa differs from resize_image at "
+                               f"{bad} values")
+    img = imgs[0]
+    frame = torch.from_numpy(img).to(dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    res = {
+        "kernel_ms": cuda_ms(lambda: resize.resize_aa(frame, h, w),
+                             flush=flush),
+        "bound_ms": (img.nbytes + h * w * 3 * 4) / HBM_BYTES_PER_S * 1e3,
+        "resize_image_host_ms": host_ms(lambda: resize_image(img, h, w)),
+        "plain_host_ms": host_ms(lambda: resize.resize_aa_ref(
+            torch.from_numpy(img), h, w), reps=3),
+        "service_host_ms": host_ms(lambda: resize.resize_aa(
+            torch.from_numpy(img).to(dev), h, w).cpu().numpy()),
+        "copy_host_ms": host_ms(lambda: torch.from_numpy(img).to(dev)
+                                .sum().item())}
+    log(f"resize_aa 850x1920 -> {h}x{w}: {res['kernel_ms']:.4f} ms (L2 "
+        f"flushed), bound {res['bound_ms']:.4f} ms; host: resize_image "
+        f"{res['resize_image_host_ms']:.2f} ms, plain "
+        f"{res['plain_host_ms']:.1f} ms, the service's resize on the card "
+        f"{res['service_host_ms']:.2f} ms (the frame's copy alone "
+        f"{res['copy_host_ms']:.2f} ms)")
+    return res
 
 
 def samples_per_ray(cfg: Config) -> int:
@@ -4334,6 +4392,7 @@ def main() -> int:
         runs["diag"] = phase("diag", diag_phase, args.seed, dev,
                              work / "tools" / "run", paths["training"])
         add_paths("", runs["diag"])
+    runs["resize"] = phase("resize", resize_phase, args.seed, dev)
     runs["dense"] = phase("dense two-pass", dense_phase, args.seed, dev,
                           kernels)
     add_paths("dense/", runs["dense"])

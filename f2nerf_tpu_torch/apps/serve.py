@@ -44,7 +44,9 @@ import socketserver
 import threading
 
 import numpy as np
+import torch
 
+from f2nerf_tpu_torch.kernels.resize import resize_aa
 from f2nerf_tpu_torch.localize.localizer import calc_average_pose
 from f2nerf_tpu_torch.utils import trace
 from f2nerf_tpu_torch.utils.image_io import resize_image
@@ -108,6 +110,17 @@ class LocalizerService:
         with trace.span("serve.localize"):
             return self._localize_frame(req)
 
+    def _resize(self, image: np.ndarray, h: int, w: int) -> np.ndarray:
+        """``resize_image`` of the frame: for a localizer on CUDA, one copy
+        of the frame to the card and the ``resize_aa`` kernel there (bit
+        for bit the same values), else ``resize_image`` itself."""
+        device = self.localizer.device
+        if device.type != "cuda":
+            return resize_image(image, h, w)
+        frame = torch.from_numpy(np.ascontiguousarray(image)).to(device)
+        trace.count("serve.resize_card", 1)
+        return resize_aa(frame, h, w).cpu().numpy()
+
     def _localize_frame(self, req: dict) -> dict:
         with trace.span("serve.resize"):
             image = np.asarray(req["image"], dtype=np.float32)
@@ -115,7 +128,7 @@ class LocalizerService:
             # resolution (nerf_based_localizer.cpp:225-235)
             h, w = self.localizer.infer_height, self.localizer.infer_width
             if image.ndim == 3 and image.shape[:2] != (h, w):
-                image = resize_image(image, h, w)
+                image = self._resize(image, h, w)
         mode = int(req.get("mode", 0))
         with self.lock:
             if self.pose_nerf is None:

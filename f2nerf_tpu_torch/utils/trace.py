@@ -19,8 +19,8 @@ Names are the profile's labels and what readers of a profile look up:
 ``mesh/broadcast`` and ``mesh/all_reduce``, and the layer boundaries:
 
 * ``serve.localize`` (a frame's root) holding ``serve.resize``,
-  ``serve.render_reply``, ``serve.score``, ``serve.reply``;
-  ``localize.draw``, ``localize.weigh``, ``localize.fuse``,
+  ``serve.render_reply``, ``serve.score``, ``serve.reply``; the counter
+  ``serve.resize_card`` (frames resized on the card); ``localize.draw``, ``localize.weigh``, ``localize.fuse``,
   ``localize.pose_grad``;
 * ``step`` (a training step's root) holding ``step.noise``,
   ``step.refresh``, ``step.forward``, ``step.backward``,
