@@ -41,6 +41,10 @@ def readings(root: pathlib.Path, workload: str, seeds: list[int],
     import torch
 
     cell = harness.load_cell(root, workload)
+    refused = harness.refusal(cell)
+    if refused:
+        print(f"portbench: {refused}", file=sys.stderr)
+        raise SystemExit(2)
     if check_rate is not None and "check_rate" in cell.mix:
         cell.mix["check_rate"] = check_rate
     dev = torch.device(device)

@@ -2,14 +2,16 @@
 ``LocalizerService.handle``, one client in a closed loop (the node
 localizes in its image callback, one frame at a time).
 
-Set-up makes the map's weights and occupancy grid from the seed, renders
-the mix's target frames with the plain reference at the localizer's
-size and enlarges them to the node's full frame, builds the localizer
-and its service as the node does, sends ``init_pose``, and runs the
-mix's warm-up frames. The window then hands the target frames over in
-turn, each as the node hands it (the float32 frame itself, the mix's
-mode, ``particle_num`` and ``return_image``), and times each from the
-hand-off to its reply after a device synchronize.
+Set-up makes the map's weights and constants by the configuration's
+field (``portbench/fields/<name>.py``) and its occupancy grid from the
+seed, renders the mix's target frames with the plain reference at the
+localizer's size and enlarges them to the node's full frame, builds the
+localizer (with the field's constants) and its service as the node
+does, sends ``init_pose``, and runs the mix's warm-up frames. The window
+then hands the target frames over in turn, each as the node hands it
+(the float32 frame itself, the mix's mode, ``particle_num`` and
+``return_image``), and times each from the hand-off to its reply after
+a device synchronize.
 
 For the check the harness records, before each frame, the service's
 prior pose and previous score and the localizer's generator state, and
@@ -89,14 +91,16 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     s = inputs.sub_seeds(seed, ("weights", "grid", "targets", "localizer",
                                 "sample"))
     F.strict_fp32()
-    weights = inputs.map_weights(model, 4, s["weights"], dev)
+    scene = cell.field.frame_scene(model, mix, s["weights"], dev)
+    field = cell.field.features(model, scene)
+    weights = scene.params
     grid = inputs.seeded_grid(model, s["grid"], dev)
     full_intr, small_intr = inputs.frame_intrinsic(full_hw, mix["focal"],
                                                    factor)
 
     def ref_map(dtype):
-        return RL.Map(weights, model, F.occ_values(grid, model), small_intr,
-                      h, w, dtype)
+        return RL.Map(weights, model, field, F.occ_values(grid, model),
+                      small_intr, h, w, dtype)
 
     frames = inputs.target_frames(
         ref_map(F.table_dtype(model)), np.random.default_rng(s["targets"]),
@@ -109,7 +113,8 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     loc = Localizer(weights, cfg, full_intr, np.zeros(3), 1.0, full_hw[0],
                     full_hw[1], param=LocalizerParam(resize_factor=factor),
                     occ_vals=occupancy.occ_values(grid, cfg.model),
-                    seed=s["localizer"], device=dev)
+                    seed=s["localizer"], device=dev,
+                    consts={"field": scene.consts})
     svc = LocalizerService(loc)
     tracing_now = [False]
     rec = Recorder(loc, mode, lambda: tracing_now[0])

@@ -1,10 +1,11 @@
 """Traffic of kind ``train``: the map trainer's job, the step function of
 ``train/step.make_train_step`` called once per batch.
 
-Set-up makes the map's weights (and, for the occupancy sampler, its
-grid) from the seed, the mix's cameras, and one optimizer and one step
-function for them, the optimizer's schedule standing at the first step
-as a resumed trainer's does. It then drives that step through its first
+Set-up makes the map's weights, constants and cameras by the
+configuration's field (``portbench/fields/<name>.py``) and, for the
+occupancy sampler, its grid, from the seed, then one optimizer and one
+step function for them, the optimizer's schedule standing at the first
+step as a resumed trainer's does. It then drives that step through its first
 ``checked_steps`` steps on batches drawn from the seed, through the same
 call and host-to-device feed as the window, keeping the loss of each,
 the first gradient as Adam's state holds it after one step, the grid
@@ -51,11 +52,12 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     rays = cfg.train.rays_per_step
     s = inputs.sub_seeds(seed, ("weights", "grid", "batches"))
     occ = model.sampler_mode == "occ"
-    params = inputs.map_weights(model, n_img, s["weights"], dev)
+    scene = cell.field.train_scene(model, mix, s["weights"], dev)
+    field = cell.field.features(model, scene)
+    params, poses, intr = scene.params, scene.poses, scene.intr
     grid = inputs.seeded_grid(model, s["grid"], dev) if occ else None
     p0 = {k: v.detach().cpu().clone() for k, v in RT.flatten(params).items()}
     grid0 = None if grid is None else grid.cpu().clone()
-    poses, intr = inputs.cameras(n_img, hw, float(mix["focal"]), dev)
     rng = np.random.default_rng(s["batches"])
     step0 = inputs.first_step(model)
     clock.mark("weights, grid and cameras")
@@ -67,7 +69,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
     step_fn = make_train_step(cfg, optimizer)
     if hooks is not None:
         step_fn = hooks.program(step_fn, optimizer)
-    consts = {"field": {}}
+    consts = {"field": scene.consts}
 
     def feed(batch):
         return tuple(torch.as_tensor(x, device=dev) for x in batch)
@@ -132,7 +134,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device,
 
     def reference(dtype):
         return RT.steps(p0, grid0, model, train, checked, poses, intr, step0,
-                        step0, dtype)
+                        step0, dtype, field)
 
     ref = reference(stated)
     numbers = checks.train_numbers(got, ref, p0)

@@ -8,6 +8,15 @@ metric, kernel count or cell is found by its name in ``BENCHMARK.json``:
 
 * the configuration: the ``file`` of its ``configs`` entry
   (``portbench/configs/<name>.json``), the port's ``Config`` as run;
+* the configuration's field: ``portbench/fields/<field>.py``, where
+  ``<field>`` is the file's top-level ``"field"`` key, ``paged`` without
+  it. A field file gives ``RUNS``, {model key: the values it runs}, and
+  three functions of (model, mix, seed, device) or (model, scene):
+  ``train_scene`` and ``frame_scene``, the weights, the program's
+  ``consts["field"]`` and, for training, the cameras, drawn on the device
+  from the seed and the mix (``inputs.Scene``); ``features``, the plain
+  reference's field function (``reference/field.py``), which keeps
+  nothing the program is handed;
 * the traffic mix: ``portbench/mixes/<traffic>.json``, parameters that
   the driver of its ``kind`` reads (``drive_<kind>.py``);
 * a per-layer metric: ``portbench/metrics/<name>.py``, whose
@@ -16,14 +25,15 @@ metric, kernel count or cell is found by its name in ``BENCHMARK.json``:
 * a cell's limits for the comparison that decides ``correct``:
   ``portbench/limits/<workload>.json``.
 
-A run is one fresh process. It refuses to run (exit 2, no result) without
-the card or with fewer cards than the cell asks for, and fails (exit 3,
-no result) if JAX or the JAX package is loaded once the window has
-closed. Its last line of standard output is the result, a JSON object
-with ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
-with ``--trace 1`` ``breakdown``, and last ``checks``: each compared
-number beside its limit, also printed as the last lines of standard
-error.
+A run is one fresh process. It refuses to run (exit 2, no result), before
+anything is drawn, where the configuration asks for what its field does
+not run, and without the card or with fewer cards than the cell asks
+for. It fails (exit 3, no result) if JAX or the JAX package is loaded
+once the window has closed. Its last line of standard output is the
+result, a JSON object with ``correct``, ``attempted``, ``failed``,
+``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and last
+``checks``: each compared number beside its limit, also printed as the
+last lines of standard error.
 """
 
 from __future__ import annotations
@@ -36,10 +46,12 @@ import os
 import pathlib
 import sys
 import time
+import types
 from dataclasses import dataclass
 
 BENCH_DIR = pathlib.Path(__file__).resolve().parent.name
 FORBIDDEN = ("jax", "jaxlib", "flax", "f2nerf_tpu")
+DEFAULT_FIELD = "paged"
 
 
 @dataclass
@@ -51,6 +63,7 @@ class Cell:
     limits: dict
     spec: dict         # BENCHMARK.json
     pb: pathlib.Path   # the benchmark's folder in the checkout
+    field: types.ModuleType | None   # its field file; None if missing
 
 
 def load_json(path: pathlib.Path) -> dict:
@@ -67,10 +80,32 @@ def load_cell(root: pathlib.Path, name: str) -> Cell:
     wl = work[name]
     conf = {c["name"]: c for c in spec["configs"]}[wl["config"]]
     pb = root / BENCH_DIR
-    return Cell(name=name, workload=wl, config=load_json(root / conf["file"]),
+    config = load_json(root / conf["file"])
+    field = pb / "fields" / f"{field_name(config)}.py"
+    return Cell(name=name, workload=wl, config=config,
                 mix=load_json(pb / "mixes" / f"{wl['traffic']}.json"),
                 limits=load_json(pb / "limits" / f"{name}.json"), spec=spec,
-                pb=pb)
+                pb=pb, field=load_module(field) if field.is_file() else None)
+
+
+def field_name(config: dict) -> str:
+    return config.get("field", DEFAULT_FIELD)
+
+
+def refusal(cell: Cell) -> str | None:
+    """Why the cell's field cannot run its configuration's model, in one
+    line; None when it can."""
+    name = field_name(cell.config)
+    if cell.field is None:
+        return (f"configuration {cell.workload['config']!r} names field "
+                f"{name!r}; add {BENCH_DIR}/fields/{name}.py")
+    model = cell.config["config"]["model"]
+    for key, runs in cell.field.RUNS.items():
+        if model.get(key) not in runs:
+            return (f"field {name!r} does not run {key} {model.get(key)!r}; "
+                    f"add {BENCH_DIR}/fields/<name>.py and name it in the "
+                    f"configuration")
+    return None
 
 
 def _for_cell(metric: dict, cell: str) -> bool:
@@ -166,6 +201,10 @@ def main(argv=None, device=None, hooks=None, root=None,
     args = parse_args(argv)
     root = pathlib.Path(root or os.getcwd())
     cell = load_cell(root, args.workload)
+    refused = refusal(cell)
+    if refused:
+        print(f"portbench: {refused}", file=sys.stderr)
+        return 2
     import torch
 
     if device is None:

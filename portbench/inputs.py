@@ -1,5 +1,7 @@
 """The benchmark's inputs, made from ``--seed``: weights, the occupancy
-grid, cameras, ray batches and target frames.
+grid, cameras, ray batches and target frames. A configuration's field
+(``portbench/fields/<name>.py``) chooses which weights, constants and
+cameras it draws, and hands them over as a :class:`Scene`.
 
 Frozen copies, each naming its origin, so that a later change to the
 program does not change what the benchmark feeds it:
@@ -18,6 +20,8 @@ program does not change what the benchmark feeds it:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -25,6 +29,15 @@ from portbench.reference import field as F
 from portbench.reference import localize as RL
 
 _MASK64 = (1 << 64) - 1
+
+
+class Scene(NamedTuple):
+    """What a field draws for a run, on the device, before the program
+    sees any of it."""
+    params: dict                 # the map's weights
+    consts: dict                 # the program's consts["field"]
+    poses: torch.Tensor | None   # [n, 3, 4] training cameras
+    intr: torch.Tensor | None    # [n, 3, 3] their intrinsics
 
 
 def sub_seeds(seed: int, names: tuple[str, ...]) -> dict[str, int]:

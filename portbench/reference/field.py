@@ -22,6 +22,13 @@ from the pages; it builds no haloed table.
 The sampler, compositing and loss helpers are frozen copies of the
 port's plain PyTorch code (each names its origin); a configuration is a
 plain dict read from ``portbench/configs/<name>.json``.
+
+The renders take the configuration's field as a function (its field
+file's ``features``): ``field(params, pts, dtype, contracted=False)``
+maps [N, 3] world points, or with ``contracted`` points of the
+occupancy grid's domain [-2, 2)^3, to [N, hash_feat_dim] float32
+features (channel 0 raw density), the table read in ``dtype``.
+:func:`field` is the paged field's.
 """
 
 from __future__ import annotations
@@ -399,7 +406,7 @@ class Render(NamedTuple):
     explore: torch.Tensor | None
 
 
-def render(params, rays_o, rays_d, model, lay, dtype, occ_vals=None,
+def render(params, rays_o, rays_d, model, field, dtype, occ_vals=None,
            noise=None, emb_idx=None) -> Render:
     """Render rays; ``noise`` (``reference.train.Noise``) makes it TRAIN:
     jittered samples, the random background and the per-image
@@ -418,8 +425,7 @@ def render(params, rays_o, rays_d, model, lay, dtype, occ_vals=None,
         pts, dirs, dt, t, explore = sample_dense(
             rays_o, rays_d, model, u=noise.march if train else None)
     s = pts.shape[1]
-    feat = field(params, pts.reshape(r * s, 3), model, lay, dtype
-                 ).reshape(r, s, -1)
+    feat = field(params, pts.reshape(r * s, 3), dtype).reshape(r, s, -1)
     sigma = density(feat[..., 0], model.density_shift)
     shading = torch.cat([torch.ones_like(feat[..., :1]), feat[..., 1:]], -1)
     if train and emb_idx is not None:
@@ -430,13 +436,13 @@ def render(params, rays_o, rays_d, model, lay, dtype, occ_vals=None,
     return Render(rgb, weights, mask, t, dt, sd, explore)
 
 
-def render_rays(params, rays_o, rays_d, model, lay, dtype, occ_vals,
+def render_rays(params, rays_o, rays_d, model, field, dtype, occ_vals,
                 chunk: int = 1 << 15) -> torch.Tensor:
     """VALIDATE colors [R, 3] of many rays, in chunks, without a graph."""
     with torch.no_grad():
         return torch.cat([
             render(params, rays_o[i:i + chunk], rays_d[i:i + chunk], model,
-                   lay, dtype, occ_vals).colors
+                   field, dtype, occ_vals).colors
             for i in range(0, rays_o.shape[0], chunk)], 0)
 
 
@@ -447,10 +453,11 @@ def pixel_grid(h: int, w: int, device) -> torch.Tensor:
     return torch.stack([ii.reshape(-1), jj.reshape(-1)], -1).to(device)
 
 
-def render_image(params, pose, intrinsic, h, w, model, lay, dtype, occ_vals
-                 ) -> torch.Tensor:
+def render_image(params, pose, intrinsic, h, w, model, field, dtype,
+                 occ_vals) -> torch.Tensor:
     """[h, w, 3] VALIDATE render clipped to [0, 1]."""
     rays_o, rays_d = rays_from_pose(pose[None], intrinsic[None],
                                     pixel_grid(h, w, pose.device))
-    colors = render_rays(params, rays_o, rays_d, model, lay, dtype, occ_vals)
+    colors = render_rays(params, rays_o, rays_d, model, field, dtype,
+                         occ_vals)
     return torch.clamp(colors.reshape(h, w, 3), 0.0, 1.0)

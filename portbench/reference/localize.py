@@ -110,12 +110,14 @@ def fuse(poses: np.ndarray, weights: np.ndarray) -> np.ndarray:
 
 
 class Map:
-    """The map a frame is localized against: weights, occupancy values
-    and camera, read in ``dtype``."""
+    """The map a frame is localized against: weights, the configuration's
+    ``field`` (``reference.field``), occupancy values and camera, read in
+    ``dtype``."""
 
-    def __init__(self, params, model, occ_vals, intrinsic, h, w, dtype):
+    def __init__(self, params, model, field, occ_vals, intrinsic, h, w,
+                 dtype):
         self.params, self.model, self.occ = params, model, occ_vals
-        self.lay = F.layout(model)
+        self.field = field
         self.intr = torch.as_tensor(intrinsic, device=occ_vals.device)
         self.h, self.w, self.dtype = h, w, dtype
 
@@ -123,14 +125,14 @@ class Map:
         rays_o, rays_d = F.rays_from_pose(pose, self.intr, ij)
         shape = rays_o.shape[:-1]
         return F.render_rays(self.params, rays_o.reshape(-1, 3),
-                             rays_d.reshape(-1, 3), self.model, self.lay,
+                             rays_d.reshape(-1, 3), self.model, self.field,
                              self.dtype, self.occ).reshape(*shape, 3)
 
     def image(self, pose: np.ndarray) -> np.ndarray:
         pose_t = torch.as_tensor(np.asarray(pose, np.float32),
                                  device=self.occ.device)
         return F.render_image(self.params, pose_t, self.intr, self.h, self.w,
-                              self.model, self.lay, self.dtype,
+                              self.model, self.field, self.dtype,
                               self.occ).cpu().numpy()
 
 
@@ -179,8 +181,8 @@ def pose_loss_grad(mp: Map, pose: np.ndarray, image: np.ndarray
     ij = F.pixel_grid(mp.h, mp.w, dev)
     gt = torch.as_tensor(image.reshape(-1, 3), device=dev)
     rays_o, rays_d = F.rays_from_pose(leaf[None], mp.intr[None], ij)
-    colors = F.render(mp.params, rays_o, rays_d, mp.model, mp.lay, mp.dtype,
-                      occ_vals=mp.occ).colors
+    colors = F.render(mp.params, rays_o, rays_d, mp.model, mp.field,
+                      mp.dtype, occ_vals=mp.occ).colors
     loss = torch.sum((colors - gt) ** 2) / (gt.numel())
     loss.backward()
     return float(loss.detach()), leaf.grad.cpu().numpy()

@@ -70,7 +70,7 @@ def draw_noise(model, train, step: int, n_rays: int, device) -> Noise:
     return Noise(refresh, bg, march, rank, within, explore)
 
 
-def update_grid(grid, params, model, lay, dtype, u, phase):
+def update_grid(grid, params, model, field, dtype, u, phase):
     """Phased max-EMA / mean-EMA refresh at jittered cell centres
     (``f2nerf_tpu_torch/models/occupancy.py:update_grid``)."""
     g, k = model.occ_grid_res, model.occ_refresh_phases
@@ -81,8 +81,8 @@ def update_grid(grid, params, model, lay, dtype, u, phase):
     ijk = torch.stack([flat // (g * g), (flat // g) % g, flat % g], -1).float()
     centres = (ijk + 0.5) * cell - F.DOMAIN
     with torch.no_grad():
-        raw = F.field(params, centres + (u - 0.5) * cell, model, lay, dtype,
-                      contracted=True)[:, 0]
+        raw = field(params, centres + (u - 0.5) * cell, dtype,
+                    contracted=True)[:, 0]
         sigma = F.density(raw, model.density_shift)
     sigma = torch.where(torch.isfinite(sigma), sigma,
                         torch.full((), F.SIGMA_EMA_MAX, device=dev))
@@ -115,12 +115,12 @@ def lr_factor(train, count: int) -> float:
     return count / warm
 
 
-def loss(params, model, train, lay, dtype, poses, intr, cam, ij, gt, noise,
-         step, occ_vals):
+def loss(params, model, train, field, dtype, poses, intr, cam, ij, gt,
+         noise, step, occ_vals):
     """The step's loss: Charbonnier colour loss, the ramped variance or
     distortion term and the explore-sparsity term."""
     rays_o, rays_d = F.rays_from_pose(poses[cam], intr[cam], ij.float())
-    res = F.render(params, rays_o, rays_d, model, lay, dtype,
+    res = F.render(params, rays_o, rays_d, model, field, dtype,
                    occ_vals=occ_vals, noise=noise,
                    emb_idx=cam if train["train_app_emb"] else None)
     total = torch.mean(torch.sqrt((res.colors - gt) ** 2 + 1e-4))
@@ -150,13 +150,13 @@ def check_supported(train) -> None:
 
 
 def steps(params0: dict, grid0, model, train, batches, poses, intr,
-          first_step: int, count0: int, dtype) -> dict:
+          first_step: int, count0: int, dtype, field) -> dict:
     """Run len(batches) steps from ``params0`` (flat name -> tensor) with
-    a fresh Adam whose schedule stands at ``count0``. Returns the losses,
+    a fresh Adam whose schedule stands at ``count0``, through the
+    configuration's ``field`` (``reference.field``). Returns the losses,
     the first step's gradients as Adam takes them (weight decay added),
     the grid after each step and the params after the last."""
     check_supported(train)
-    lay = F.layout(model)
     dev = poses.device
     flat = {k: v.detach().to(dev).clone().requires_grad_(True)
             for k, v in params0.items()}
@@ -175,13 +175,13 @@ def steps(params0: dict, grid0, model, train, batches, poses, intr,
         if model.sampler_mode == "occ":
             phase = refresh_phase(model, step)
             if phase is not None:
-                grid = update_grid(grid, nested, model, lay, dtype,
+                grid = update_grid(grid, nested, model, field, dtype,
                                    noise.refresh, phase)
             occ = F.occ_values(grid, model,
                                warmup=step < model.occ_warmup_steps)
             out["grid"].append(grid.clone())
-        total = loss(nested, model, train, lay, dtype, poses, intr, cam, ij,
-                     gt, noise, step, occ)
+        total = loss(nested, model, train, field, dtype, poses, intr, cam,
+                     ij, gt, noise, step, occ)
         grads = torch.autograd.grad(total, list(flat.values()),
                                     allow_unused=True)
         out["loss"].append(float(total.detach()))

@@ -1,7 +1,9 @@
 """Shared by the benchmark's tests: a tiny copy of the benchmark (the
 same cells and the shelved one, configurations cut to a few hundred
-pages, mixes cut to a few rays) in a scratch checkout that links the
-program beside it, and one run of a cell in it on the CPU."""
+pages, mixes cut to a few rays, then as each configuration's field file
+asks: its optional ``TINY_MODEL`` and ``TINY_MIX``) in a scratch
+checkout that links the program beside it, and one run of a cell in it
+on the CPU."""
 
 from __future__ import annotations
 
@@ -44,19 +46,30 @@ def tiny_tree(dst: pathlib.Path) -> pathlib.Path:
             m["workloads"].append(SHELVED["name"])
     (dst / "BENCHMARK.json").write_text(json.dumps(spec))
     os.symlink(REPO / PROGRAM, dst / PROGRAM)
+    fields = {}     # configuration name -> its field file
     for path in (pb / "configs").glob("*.json"):
         conf = json.loads(path.read_text())
+        file = pb / "fields" / f"{harness.field_name(conf)}.py"
+        field = harness.load_module(file) if file.is_file() else None
         conf["config"]["model"].update(TINY_MODEL)
+        conf["config"]["model"].update(getattr(field, "TINY_MODEL", {}))
         conf["config"]["train"].update(TINY_TRAIN)
         path.write_text(json.dumps(conf))
+        fields[conf["name"]] = field
+    mix_fields = {}  # mix name -> the field files of the cells that run it
+    for w in spec["workloads"]:
+        mix_fields.setdefault(w["traffic"], []).append(fields[w["config"]])
     for path in (pb / "mixes").glob("*.json"):
         mix = json.loads(path.read_text())
         mix.update(TINY_MIX[mix["kind"]])
+        for field in mix_fields.get(path.stem, ()):
+            mix.update(getattr(field, "TINY_MIX", {}).get(mix["kind"], {}))
         path.write_text(json.dumps(mix))
     return dst
 
 
-CELLS = ("occ-localize", "occ-train", "dense-train")
+CELLS = tuple(w["name"] for w in json.loads(
+    (REPO / "BENCHMARK.json").read_text())["workloads"])
 # a cell whose files the benchmark keeps (its mix and limits) while its
 # entry waits for chip time to prove it (PERF.md, Open questions); the
 # tiny copy lists it beside the frame cell, so that its path stays tested

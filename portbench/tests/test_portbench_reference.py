@@ -6,16 +6,19 @@ whole timed path; ``test_portbench_run.py``.)"""
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-from portbench import inputs
+from portbench import harness, inputs
 from portbench.tests import helpers
 from portbench.reference import field as F
 from portbench.reference import localize as RL
 from portbench.reference import train as RT
+
+PB = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _configs(sampler: str):
@@ -26,6 +29,11 @@ def _configs(sampler: str):
                                 sampler_mode=sampler, **helpers.TINY_MODEL)
     cfg = dataclasses.replace(cfg, model=model)
     return cfg, F.model_ns(dataclasses.asdict(model))
+
+
+def _field(model):
+    return harness.load_module(PB / "fields" / "paged.py").features(
+        model, None)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -67,7 +75,7 @@ def test_render(sampler):
             assert torch.equal(a, b)
     port = renderer.render(params, rays_o, rays_d, cfg.model, occ_vals=occ,
                            noise=noise, emb_idx=cam)
-    ref = F.render(params, rays_o, rays_d, model, F.layout(model),
+    ref = F.render(params, rays_o, rays_d, model, _field(model),
                    F.table_dtype(model), occ_vals=F.occ_values(grid, model),
                    noise=ref_noise, emb_idx=cam)
     torch.testing.assert_close(ref.colors, port.colors, rtol=1e-5, atol=1e-6)
@@ -91,8 +99,8 @@ def test_mode0_frame():
                     40, 96, param=LocalizerParam(resize_factor=8),
                     occ_vals=occupancy.occ_values(grid, cfg.model), seed=8,
                     device=dev)
-    mp = RL.Map(params, model, F.occ_values(grid, model), small, 5, 12,
-                F.table_dtype(model))
+    mp = RL.Map(params, model, _field(model), F.occ_values(grid, model),
+                small, 5, 12, F.table_dtype(model))
     image = mp.image(np.eye(3, 4, dtype=np.float32) + 0.01)
     prior = np.eye(3, 4, dtype=np.float32)
     state = loc._rng.bit_generator.state
