@@ -15,7 +15,9 @@ them, :func:`reset` clears them. A total stays on the device until
 :func:`counts` reads it, with one synchronize.
 
 Names are the profile's labels and what readers of a profile look up:
-``compute_runs`` (the encode's run dedup), ``warp_points``,
+``compute_runs`` (the encode's run dedup), ``warp_points`` with the
+counters ``warp.points`` and ``warp.clamped`` (the points the
+perspective warp mapped, and those with a coordinate at its clamp),
 ``mesh/broadcast`` and ``mesh/all_reduce``, and the layer boundaries:
 
 * ``serve.localize`` (a frame's root) holding ``serve.resize``,
