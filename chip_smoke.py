@@ -1058,7 +1058,7 @@ def step_check_phase(seed: int, dev: torch.device) -> dict:
                                  for k, p in opt.named.items()})
             out["params"].append({k: p.detach().cpu().clone()
                                   for k, p in opt.named.items()})
-        out["lr"] = max(g["lr"] for g in opt.adam.param_groups)
+        out["lr"] = opt.lr()
         runs[name] = out
     a, b, c = runs["cuda"], runs["cuda again"], runs["cpu"]
     report = {"loss_cuda": a["loss"], "loss_cpu": c["loss"]}
@@ -2417,7 +2417,7 @@ def dist_train(blocks: int, seed: int, dev: torch.device, mesh,
     zero_launches()
     times, metrics, lrs = [], [], []
     for k in range(DIST_STEPS):
-        lrs.append(max(g["lr"] for g in opt.adam.param_groups))
+        lrs.append(opt.lr())
         t0 = time.perf_counter()
         grid, m = step_fn(params, grid, poses, intr, STEP0 + k, *batches[k])
         torch.cuda.synchronize()
@@ -3857,14 +3857,17 @@ def dataprep_phase(seed: int, dev: torch.device, root: pathlib.Path,
             f"{res['untrained_psnr']:.3f} dB untrained")
 
         # e: run_cli_until_done.sh trains the same map on to
-        # DATAPREP_STEPS in windows, the first cut at about half of them
+        # DATAPREP_STEPS in windows, the first cut inside the first half
+        # of them: a window's start-up builds no kernel, full_test's did,
+        # and with the step's CUDA graphs that difference is about as
+        # long as the training
         more = DATAPREP_STEPS - RUN_STEPS
         wcfg = Config.quality(end_iter=DATAPREP_STEPS)
         wcfg = dataclasses.replace(wcfg, train=dataclasses.replace(
             wcfg.train, report_freq=RUN_REPORT, save_freq=DATAPREP_STEPS,
             vis_freq=10 ** 9))
         wcfg.save(run / "train_config.yaml")
-        window_s = int(np.ceil(startup + 0.5 * train_s * more
+        window_s = int(np.ceil(startup + 0.25 * train_s * more
                                / (RUN_STEPS - RUN_REPORT) + 2))
         launches = root / "launches_windows.jsonl"
         wlog = root / "windows.log"

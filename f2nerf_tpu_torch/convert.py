@@ -86,8 +86,11 @@ def opt_state_from_numpy(optimizer, state: Any) -> None:
                          f"optimizer's {sorted(optimizer.named)}")
     for name, p in optimizer.named.items():
         optimizer.adam.state[p] = {
+            # a capturable Adam (on a CUDA device) counts on the device
             "step": torch.tensor(float(np.asarray(adam.count)),
-                                 dtype=torch.float32),
+                                 dtype=torch.float32,
+                                 device=p.device if optimizer.capturable
+                                 else None),
             "exp_avg": torch.tensor(np.asarray(mu[name], np.float32),
                                     device=p.device),
             "exp_avg_sq": torch.tensor(np.asarray(nu[name], np.float32),

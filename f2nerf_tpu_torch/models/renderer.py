@@ -122,8 +122,7 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
             smp = sampler.sample_rays(rays_o, rays_d, cfg,
                                       u=noise.march if train else None)
             explore = None
-    if (train and cfg.sampler_mode == "dense" and cfg.dense_two_pass
-            and cfg.n_samples % 8 == 0):
+    if train and uses_two_pass(cfg):
         ray_emb = None if emb_idx is None else params["app_emb"][emb_idx]
         return _render_two_pass(params, smp, bg_color, cfg, level_weights,
                                 ray_emb, consts)
@@ -135,6 +134,13 @@ def render(params: Params, rays_o: torch.Tensor, rays_d: torch.Tensor,
     return _render_samples(params, smp.pts, smp.dirs, smp.t, smp.dt,
                            explore, bg_color, cfg, level_weights, emb,
                            consts)
+
+
+def uses_two_pass(cfg: ModelConfig) -> bool:
+    """Whether TRAIN renders take the dense two-pass
+    (:func:`_render_two_pass`)."""
+    return (cfg.sampler_mode == "dense" and cfg.dense_two_pass
+            and cfg.n_samples % 8 == 0)
 
 
 def _render_samples(params, pts, ray_dirs, t, dt, explore, bg_color, cfg,

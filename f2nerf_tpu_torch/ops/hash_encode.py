@@ -23,6 +23,8 @@ feature gradient is autograd's transpose of the row gather (an
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -31,6 +33,15 @@ _U32 = 0xFFFFFFFF
 # (src/hash_3d_anchored.cu:37-44)
 _CORNERS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
             (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
+
+
+@functools.lru_cache(maxsize=8)
+def _corners(device: torch.device) -> torch.Tensor:
+    """[8, 3] int64 corner offsets on ``device``, copied from the host once
+    per device (a CUDA graph's capture cannot copy from the host), outside
+    inference mode."""
+    with torch.inference_mode(False):
+        return torch.tensor(_CORNERS, dtype=torch.int64, device=device)
 
 
 def level_scales(n_levels: int, res_base_pow2: float = 3.0,
@@ -63,7 +74,7 @@ def hash_corner_indices(points: torch.Tensor, primes: torch.Tensor,
     f = torch.floor(pt.detach())
     frac = pt - f
     ipos = torch.clamp_min(f, 0.0).to(torch.int64)           # saturate
-    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=points.device)
+    corners = _corners(points.device)
     cpos = ipos[:, :, None, :] + corners                     # [N, L, 8, 3]
     p = primes.to(torch.int64)[None, :, None, :]             # [1, L, 1, 3]
     prod = (cpos * p) & _U32

@@ -40,6 +40,7 @@ autograd, as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -67,6 +68,9 @@ class PagedMeta(NamedTuple):
     dense: tuple[bool, ...]        # level stored dense (no collisions)
     scales: np.ndarray             # [L] float32 resolution multipliers
     biases: np.ndarray             # [L, 3] float32 anchors
+
+    # by identity, as its arrays have no hash: a cache keys on the object
+    __hash__ = object.__hash__
 
     @property
     def total_pages(self) -> int:
@@ -165,9 +169,7 @@ def page_indices(points: torch.Tensor, meta: PagedMeta
     (d frac / d points = the level's scale; floor's gradient is zero,
     as in JAX).
     """
-    dev = points.device
-    scales = torch.as_tensor(meta.scales, device=dev)
-    biases = torch.as_tensor(meta.biases, device=dev)
+    scales, biases, a, b, n_pages, offs = _meta_tensors(meta, points.device)
     pt = points[None, :, :] * scales[:, None, None] + biases[:, None, :]
     f = torch.floor(pt.detach())
     frac = (pt - f).float()
@@ -175,16 +177,24 @@ def page_indices(points: torch.Tensor, meta: PagedMeta
     blk = (ip >> 2).to(torch.int64) & _U32               # as uint32
     local = ip & (BLOCK - 1)
 
-    a = torch.as_tensor(meta.a.astype(np.int64), device=dev)[:, None]
-    b = torch.as_tensor(meta.b.astype(np.int64), device=dev)[:, None]
-    n_pages = torch.as_tensor(np.array(meta.n_pages, dtype=np.int64),
-                              device=dev)[:, None]
     raw = (((blk[..., 0] * a) & _U32) + ((blk[..., 1] * b) & _U32)
            + blk[..., 2]) & _U32
     page = raw % n_pages
-    offs = torch.as_tensor(np.array(meta.page_offset, dtype=np.int64),
-                           device=dev)[:, None]
     return (page + offs).to(torch.int32), local, frac
+
+
+@functools.lru_cache(maxsize=64)
+def _meta_tensors(meta: PagedMeta, dev: torch.device) -> tuple:
+    """(scales [L], biases [L, 3], a, b, n_pages, page_offset [L, 1]) of
+    ``meta`` on ``dev``, copied from the host once per (meta, device):
+    a CUDA graph's capture cannot copy from the host. Made outside
+    inference mode, so that autograd may save them whoever asks first."""
+    ints = [np.asarray(x, dtype=np.int64) for x in
+            (meta.a, meta.b, meta.n_pages, meta.page_offset)]
+    with torch.inference_mode(False):
+        return (torch.as_tensor(meta.scales, device=dev),
+                torch.as_tensor(meta.biases, device=dev),
+                *(torch.as_tensor(x, device=dev)[:, None] for x in ints))
 
 
 def axis_weights(local: torch.Tensor, frac: torch.Tensor
@@ -331,15 +341,17 @@ _run_log: list | None = None
 
 
 @contextlib.contextmanager
-def recording_runs():
+def recording_runs(record: bool = True):
     """Record the run counts of every deduped level encoded inside the
     block: yields a list that gains one dict per level and call,
     ``{"kind": "rays" | "compacted", "level", "budget", "runs"}``, where
     ``runs`` is the largest run count of a ray (of a pseudo-row for
     ``"compacted"``), a 0-d device tensor: nothing is read on the host
-    until the caller reads it."""
+    until the caller reads it. ``record`` False records nothing inside
+    the block, even under an outer list, and yields None (a CUDA graph
+    captured without the counts)."""
     global _run_log
-    outer, _run_log = _run_log, []
+    outer, _run_log = _run_log, [] if record else None
     try:
         yield _run_log
     finally:

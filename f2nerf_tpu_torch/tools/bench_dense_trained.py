@@ -63,7 +63,7 @@ def _restore(state: dict, cfg: Config, dev: torch.device):
     params = unflatten({k: v.to(dev).clone()
                         for k, v in state["params"].items()})
     optimizer = make_optimizer(params, cfg.train)
-    optimizer.adam.load_state_dict(state["adam"])
+    optimizer.load_state_dict(state["adam"])
     optimizer.set_count(int(state["count"]))
     consts = unflatten({k: v.to(dev) for k, v in state["consts"].items()})
     return params, optimizer, consts or None

@@ -54,7 +54,7 @@ def save(ckpt_dir: str | pathlib.Path, step: int, params: dict[str, Any],
     path.mkdir(parents=True, exist_ok=True)
     state = {"step": int(step),
              "params": {k: v.detach() for k, v in flatten(params).items()},
-             "adam": optimizer.adam.state_dict(),
+             "adam": optimizer.state_dict(),
              "count": int(optimizer.count), "occ_grid": occ_grid,
              "consts": {k: v.detach()
                         for k, v in flatten(consts or {}).items()}}

@@ -57,7 +57,7 @@ from f2nerf_tpu_torch.parallel.mesh import (DataMesh, barrier, is_writer,
                                             replicate, shard_batch)
 from f2nerf_tpu_torch.train import checkpoint as ckpt_lib
 from f2nerf_tpu_torch.train.optim import lr_schedule, make_optimizer
-from f2nerf_tpu_torch.train.step import StepNoise, draw_noise, make_train_step
+from f2nerf_tpu_torch.train.step import StepNoise, make_train_step
 from f2nerf_tpu_torch.utils import trace
 from f2nerf_tpu_torch.utils.image_io import write_image
 
@@ -98,7 +98,7 @@ class Trainer:
     ``params`` needs them, since the features were trained under that
     run's xor biases. ``noise_fn(step, n_rays)
     -> StepNoise`` gives each step's draws (default:
-    ``train.step.draw_noise``). ``profile_dir``: trace steps
+    the step's own, ``train.step.draw_noise``). ``profile_dir``: trace steps
     ``profile_steps[0]`` to ``profile_steps[1]`` with ``torch.profiler``
     into a Chrome trace there (one a rank, with a mesh of several).
     ``mesh``: train across its ranks (module docstring); ``device``
@@ -156,8 +156,7 @@ class Trainer:
         self.intrinsics = torch.as_tensor(dataset.intrinsics,
                                           device=self.device)
         self._step_fn = make_train_step(cfg, self.optimizer, mesh=mesh)
-        self._noise_fn = noise_fn or (lambda step, n: draw_noise(
-            cfg, step, n, self.device))
+        self._noise_fn = noise_fn
         self._rng = np.random.default_rng(cfg.train.seed)
         # the native prefetching loader when its library loads
         self._native = None
@@ -220,7 +219,7 @@ class Trainer:
         with torch.no_grad():
             for name, p in self.optimizer.named.items():
                 p.copy_(state["params"][name])
-        self.optimizer.adam.load_state_dict(state["adam"])
+        self.optimizer.load_state_dict(state["adam"])
         self.optimizer.set_count(int(state["count"]))
         occ_grid = state["occ_grid"]
         if occ_grid is not None and occ_grid.dim() == 3:
@@ -304,7 +303,8 @@ class Trainer:
             self.occ_grid, metrics = self._step_fn(
                 self.params, self.occ_grid, self.poses, self.intrinsics,
                 self.step, cam_idx, ij, gt,
-                noise=self._noise_fn(self.step, cfg.train.rays_per_step),
+                noise=(None if self._noise_fn is None else self._noise_fn(
+                    self.step, cfg.train.rays_per_step)),
                 consts=self.consts)
             self.step += 1
             pending.append(metrics)

@@ -10,8 +10,11 @@ level anneal are decided on the host with no device sync; the metrics
 stay device tensors (no ``.item()`` in the step). One path syncs: the
 dense two-pass renderer (``dense_two_pass``) reads its survivor count
 once per step to pick its bucket on the host, where JAX's
-``lax.switch`` picks it on the device; a CUDA graph of such a step needs
-one graph per bucket.
+``lax.switch`` picks it on the device, so it stays eager. Elsewhere on
+a CUDA device (:func:`graphable`) every step after the first replays its
+device work from CUDA graphs (``train/step_graph.py``): the host's
+decisions are a :class:`StepPlan`, whose weights a graph reads from
+device buffers.
 
 Randomness: one ``torch.Generator`` per step, seeded from
 (``cfg.train.seed``, step), so a step's draws do not depend on how many
@@ -124,34 +127,44 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
 
 
 def _ray_draws(gen: torch.Generator, cfg: Config, n_rays: int,
-               device: torch.device) -> dict:
+               device: torch.device, into: StepNoise | None = None) -> dict:
     """The per-ray draws of ``n_rays`` rays and the global-sparsity
-    points, in this order from ``gen``."""
+    points, in this order from ``gen``; written into the buffers of
+    ``into`` where given."""
     m = cfg.model
 
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=device)
+    def rand(name, *shape):
+        return torch.rand(shape, generator=gen, device=device,
+                          out=None if into is None else getattr(into, name))
 
-    out = dict(bg=rand(n_rays, 3), march=None, rank=None, within=None,
+    out = dict(bg=rand("bg", n_rays, 3), march=None, rank=None, within=None,
                explore=None, gs_points=None)
     if m.sampler_mode == "occ":
         if m.occ_explore_eps > 0.0:
-            out["explore"] = rand(n_rays, 1) < m.occ_explore_eps
-        out["rank"] = rand(n_rays, m.occ_keep)
-        out["within"] = rand(n_rays, m.occ_keep, m.occ_samples_per_segment)
+            out["explore"] = torch.lt(
+                torch.rand((n_rays, 1), generator=gen, device=device),
+                m.occ_explore_eps,
+                out=None if into is None else into.explore)
+        out["rank"] = rand("rank", n_rays, m.occ_keep)
+        out["within"] = rand("within", n_rays, m.occ_keep,
+                             m.occ_samples_per_segment)
     else:
-        out["march"] = rand(n_rays, m.n_samples)
+        out["march"] = rand("march", n_rays, m.n_samples)
     if cfg.train.global_sparsity_weight > 0.0:
         dom_r = 1.0 + m.contraction_radius
-        out["gs_points"] = (rand(cfg.train.global_sparsity_points, 3)
-                            * (2.0 * dom_r) - dom_r)
+        out["gs_points"] = rand("gs_points", cfg.train.global_sparsity_points,
+                                3).mul_(2.0 * dom_r).sub_(dom_r)
     return out
 
 
 def draw_noise(cfg: Config, step: int, n_rays: int,
-               device: torch.device) -> StepNoise:
+               device: torch.device, into: StepNoise | None = None
+               ) -> StepNoise:
     """The draws of ``step`` for a global batch of ``n_rays`` rays, from a
-    generator seeded from (train seed, step) only.
+    generator seeded from (train seed, step) only. ``into`` (a
+    ``StepNoise`` of buffers of the draws' shapes, ``refresh`` among them
+    for a refresh step; ``grad_blocks`` 0) takes the same draws in place:
+    a CUDA graph's inputs.
 
     With ``grad_blocks = V > 0`` the per-ray draws of block b (rows
     ``[b*n/V, (b+1)*n/V)``) come from a generator seeded from (train
@@ -160,12 +173,15 @@ def draw_noise(cfg: Config, step: int, n_rays: int,
     the step's."""
     gen = _generator(device, cfg.train.seed, step)
     refresh = (torch.rand((occupancy.refresh_points(cfg.model), 3),
-                          generator=gen, device=device)
+                          generator=gen, device=device,
+                          out=None if into is None else into.refresh)
                if refresh_phase(cfg, step) is not None else None)
     n_blocks = cfg.train.grad_blocks
     if n_blocks <= 0:
         return StepNoise(refresh=refresh,
-                         **_ray_draws(gen, cfg, n_rays, device))
+                         **_ray_draws(gen, cfg, n_rays, device, into))
+    if into is not None:
+        raise ValueError("draw_noise(into=) takes grad_blocks 0")
     if n_rays % n_blocks:
         raise ValueError(f"grad_blocks={n_blocks} must divide rays/step="
                          f"{n_rays}")
@@ -199,8 +215,7 @@ def shard_noise(mesh: DataMesh | None, noise: StepNoise) -> StepNoise:
         name: shard_batch(mesh, x)[0] for name, x in _per_ray(noise)})
 
 
-def _level_weights(cfg: Config, step: int,
-                   device: torch.device) -> torch.Tensor | None:
+def level_weights(cfg: Config, step: int) -> np.ndarray | None:
     """Coarse-to-fine anneal: level l ramps over steps
     [la*(l-1)/L, la*l/L]; computed in f32 on the host as JAX does."""
     la = cfg.train.level_anneal_end
@@ -208,9 +223,29 @@ def _level_weights(cfg: Config, step: int,
         return None
     nl = cfg.model.n_levels
     prog = np.clip(np.float32(step) / np.float32(la), 0.0, 1.0)
-    lw = np.clip(prog * np.float32(nl) - np.arange(nl, dtype=np.float32)
-                 + np.float32(1.0), 0.0, 1.0).astype(np.float32)
-    return torch.as_tensor(lw, device=device)
+    return np.clip(prog * np.float32(nl) - np.arange(nl, dtype=np.float32)
+                   + np.float32(1.0), 0.0, 1.0).astype(np.float32)
+
+
+class StepPlan(NamedTuple):
+    """What the host decides for a step from its number alone: the
+    occupancy refresh phase (None: no refresh), the occupancy warm-up,
+    the variance-loss weight and the level-anneal weights [L] (None: no
+    anneal). In a CUDA graph the two weights are device buffers that each
+    replay reads."""
+    phase: int | None
+    warmup: bool
+    var_w: float | torch.Tensor
+    level_w: torch.Tensor | None
+
+
+def step_plan(cfg: Config, step: int, device: torch.device) -> StepPlan:
+    lw = level_weights(cfg, step)
+    return StepPlan(
+        phase=refresh_phase(cfg, step),
+        warmup=step < cfg.model.occ_warmup_steps,
+        var_w=var_loss_weight(step, cfg),
+        level_w=None if lw is None else torch.as_tensor(lw, device=device))
 
 
 def make_loss_fn(cfg: Config, mesh: DataMesh | None = None):
@@ -227,7 +262,7 @@ def make_loss_fn(cfg: Config, mesh: DataMesh | None = None):
     def loss_fn(params: dict[str, Any], poses: torch.Tensor,
                 intrinsics: torch.Tensor, cam_idx: torch.Tensor,
                 ij: torch.Tensor, gt: torch.Tensor, noise: StepNoise,
-                step: int, occ_vals: torch.Tensor | None,
+                plan: StepPlan, occ_vals: torch.Tensor | None,
                 consts: dict[str, Any] | None = None
                 ) -> tuple[torch.Tensor, StepMetrics]:
         cam = cam_idx.long()
@@ -235,9 +270,7 @@ def make_loss_fn(cfg: Config, mesh: DataMesh | None = None):
                                         ij.float())
         emb_idx = cam if cfg.train.train_app_emb else None
         res = renderer.render(params, rays_o, rays_d, cfg.model,
-                              occ_vals=occ_vals,
-                              level_weights=_level_weights(cfg, step,
-                                                           rays_o.device),
+                              occ_vals=occ_vals, level_weights=plan.level_w,
                               emb_idx=emb_idx, noise=noise, consts=consts)
         # Charbonnier color loss (train_manager.cpp:78)
         color_loss = mean(torch.sqrt((res.colors - gt) ** 2 + 1e-4))
@@ -250,7 +283,7 @@ def make_loss_fn(cfg: Config, mesh: DataMesh | None = None):
             var = weight_variance(res.weights, res.mask,
                                   pos=res.t / (cfg.model.sample_l * 16.0))
             var_loss = mean(torch.sqrt(var + 1e-2))
-        loss = color_loss + var_loss * var_loss_weight(step, cfg)
+        loss = color_loss + var_loss * plan.var_w
         # samples in occupied-but-ineligible segments; near-march survivor
         # samples: the ratio terms' masks, whose sums over the global
         # batch are their denominators
@@ -314,6 +347,17 @@ def _set_grads(optimizer: Optimizer, flat: torch.Tensor) -> None:
         p.grad = g.view_as(p)
 
 
+def graphable(cfg: Config, mesh: DataMesh | None,
+              device: torch.device) -> bool:
+    """Whether the step can serve its device work from CUDA graphs: on a
+    CUDA device, with no mesh (whose collectives stay eager), no
+    ``grad_blocks`` (a host loop over blocks) and no dense two-pass
+    render (which picks its bucket from a count read on the host)."""
+    return (device.type == "cuda" and mesh is None
+            and cfg.train.grad_blocks <= 0
+            and not renderer.uses_two_pass(cfg.model))
+
+
 def make_train_step(cfg: Config, optimizer: Optimizer,
                     mesh: DataMesh | None = None):
     """Build the step
@@ -335,6 +379,11 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
     update are the global ones on every rank (module docstring). Raises
     ``ValueError`` unless ``grad_blocks`` V divides the global batch and
     k divides V.
+
+    Where :func:`graphable` holds, every step after the first replays a
+    CUDA graph of its device work (``train.step_graph``); the returned
+    metrics and grid are the caller's to keep. ``train_step.eager`` is
+    the same step without graphs.
     """
     n_blocks = cfg.train.grad_blocks
     shards = mesh.size if mesh is not None else 1
@@ -345,7 +394,7 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
     use_occ = cfg.model.sampler_mode == "occ"
     scale = float(cfg.train.loss_scale)
 
-    def block_grads(params, poses, intrinsics, step, cam_idx, ij, gt,
+    def block_grads(params, poses, intrinsics, plan, cam_idx, ij, gt,
                     noise, occ_vals, consts) -> StepMetrics:
         """JAX ``_block_grads``: this rank's blocks, one backward each,
         into a zero-filled [V, n_params + 4] stack (grads, then loss,
@@ -365,7 +414,7 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
             optimizer.zero_grad()
             with trace.span("step.forward"):
                 loss, m = loss_fn(params, poses, intrinsics, cam_idx[sl],
-                                  ij[sl], gt[sl], bnoise, step, occ_vals,
+                                  ij[sl], gt[sl], bnoise, plan, occ_vals,
                                   consts)
             with trace.span("step.backward"):
                 (loss * scale).backward()
@@ -377,50 +426,33 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
                        / n_blocks)
         return _metrics(*torch.mean(stack[:, n_params:], dim=0))
 
-    def train_step(params: dict[str, Any], occ_grid: torch.Tensor | None,
-                   poses: torch.Tensor, intrinsics: torch.Tensor, step: int,
-                   cam_idx: torch.Tensor, ij: torch.Tensor, gt: torch.Tensor,
-                   noise: StepNoise | None = None,
-                   consts: dict[str, Any] | None = None
-                   ) -> tuple[torch.Tensor | None, StepMetrics]:
-        n_rays = cam_idx.shape[0] * shards
-        if n_blocks > 0 and n_rays % n_blocks:
-            raise ValueError(f"grad_blocks={n_blocks} must divide "
-                             f"rays/step={n_rays}")
-        with trace.span("step"):
-            return _phases(params, occ_grid, poses, intrinsics, step,
-                           cam_idx, ij, gt, noise, consts, n_rays)
-
-    def _phases(params, occ_grid, poses, intrinsics, step, cam_idx, ij, gt,
-                noise, consts, n_rays):
-        with trace.span("step.noise"):
-            if noise is None:
-                noise = draw_noise(cfg, step, n_rays, poses.device)
-            noise = shard_noise(mesh, noise)
+    def device_work(params, occ_grid, poses, intrinsics, plan, cam_idx, ij,
+                    gt, noise, consts, zero_grad):
+        """The step's device work, the same in an eager step and in a
+        graph's capture: the refresh, the occupancy values, the forward,
+        the backward and the update; ``zero_grad`` clears the grads."""
         occ_vals = None
         if use_occ:
             with trace.span("step.refresh"):
-                phase = refresh_phase(cfg, step)
-                if phase is not None:
+                if plan.phase is not None:
                     with torch.no_grad():
                         occ_grid = occupancy.update_grid(
                             occ_grid,
                             lambda pts: renderer.density_at(
                                 params, pts, cfg.model, contracted=True,
                                 consts=consts),
-                            cfg.model, phase=phase, u=noise.refresh)
+                            cfg.model, phase=plan.phase, u=noise.refresh)
                 # sigma-valued occupancy; warmup forces everything occupied
-                occ_vals = occupancy.occ_values(
-                    occ_grid, cfg.model,
-                    warmup=step < cfg.model.occ_warmup_steps)
+                occ_vals = occupancy.occ_values(occ_grid, cfg.model,
+                                                warmup=plan.warmup)
         if n_blocks > 0:
-            metrics = block_grads(params, poses, intrinsics, step, cam_idx,
+            metrics = block_grads(params, poses, intrinsics, plan, cam_idx,
                                   ij, gt, noise, occ_vals, consts)
         else:
-            optimizer.zero_grad()
+            zero_grad()
             with trace.span("step.forward"):
                 loss, metrics = loss_fn(params, poses, intrinsics, cam_idx,
-                                        ij, gt, noise, step, occ_vals,
+                                        ij, gt, noise, plan, occ_vals,
                                         consts)
             with trace.span("step.backward"):
                 # static loss scaling (reference fp16 kernels' x128);
@@ -441,4 +473,50 @@ def make_train_step(cfg: Config, optimizer: Optimizer,
             optimizer.step()
         return occ_grid, StepMetrics(*(t.detach() for t in metrics))
 
+    def eager(params: dict[str, Any], occ_grid: torch.Tensor | None,
+              poses: torch.Tensor, intrinsics: torch.Tensor, step: int,
+              cam_idx: torch.Tensor, ij: torch.Tensor, gt: torch.Tensor,
+              noise: StepNoise | None = None,
+              consts: dict[str, Any] | None = None
+              ) -> tuple[torch.Tensor | None, StepMetrics]:
+        n_rays = _check_rays(cam_idx)
+        with trace.span("step"):
+            with trace.span("step.noise"):
+                if noise is None:
+                    noise = draw_noise(cfg, step, n_rays, poses.device)
+                noise = shard_noise(mesh, noise)
+            return device_work(params, occ_grid, poses, intrinsics,
+                               step_plan(cfg, step, poses.device), cam_idx,
+                               ij, gt, noise, consts, optimizer.zero_grad)
+
+    def _check_rays(cam_idx) -> int:
+        n_rays = cam_idx.shape[0] * shards
+        if n_blocks > 0 and n_rays % n_blocks:
+            raise ValueError(f"grad_blocks={n_blocks} must divide "
+                             f"rays/step={n_rays}")
+        return n_rays
+
+    graphs = None
+
+    def train_step(params: dict[str, Any], occ_grid: torch.Tensor | None,
+                   poses: torch.Tensor, intrinsics: torch.Tensor, step: int,
+                   cam_idx: torch.Tensor, ij: torch.Tensor, gt: torch.Tensor,
+                   noise: StepNoise | None = None,
+                   consts: dict[str, Any] | None = None
+                   ) -> tuple[torch.Tensor | None, StepMetrics]:
+        nonlocal graphs
+        if graphable(cfg, mesh, poses.device):
+            if graphs is None:
+                # the first step runs eagerly: it makes Adam's state, the
+                # kernels' libraries and the device constants
+                from f2nerf_tpu_torch.train.step_graph import StepGraphs
+                graphs = StepGraphs(cfg, optimizer, device_work)
+            elif graphs.serves(params):
+                with trace.span("step"):
+                    return graphs.step(params, occ_grid, poses, intrinsics,
+                                       step, cam_idx, ij, gt, noise, consts)
+        return eager(params, occ_grid, poses, intrinsics, step, cam_idx, ij,
+                     gt, noise, consts)
+
+    train_step.eager = eager
     return train_step

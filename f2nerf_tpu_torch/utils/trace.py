@@ -9,6 +9,15 @@ clock with the device's kernels, and :func:`count` adds to a total.
 Otherwise each is one check of that flag and nothing more: no setting
 or environment variable switches them.
 
+While a CUDA graph is captured (:func:`capturing`) they follow the
+capture instead, profiler or not. A capture that records the counters
+has :func:`enabled` true, and :func:`count` records its ``(name,
+value)`` pairs: the values the graph's replays recompute, which
+:func:`add` adds to the totals after each replay while a profiler
+records. A capture that does not has :func:`enabled` false, so the
+counters' device work stays out of that graph. Spans are off in either:
+a graph's replay runs no host code.
+
 While it records, a span also keeps its host duration, and a counter
 its total, per process: :func:`host_durations` and :func:`counts` read
 them, :func:`reset` clears them. A total stays on the device until
@@ -26,7 +35,9 @@ perspective warp mapped, and those with a coordinate at its clamp),
   ``localize.pose_grad``;
 * ``step`` (a training step's root) holding ``step.noise``,
   ``step.refresh``, ``step.forward``, ``step.backward``,
-  ``step.optimizer``;
+  ``step.optimizer`` in an eager step, ``step.noise`` and
+  ``step.replay`` in a step that replays a CUDA graph; the counter
+  ``step.graphed`` (steps served by a replay);
 * ``render.sample``, ``render.field``, ``render.shade``,
   ``render.composite``; the counters ``render.live`` and
   ``render.slots`` (sample slots that compositing can weight, and every
@@ -46,10 +57,16 @@ _OFF = contextlib.nullcontext()
 _durations: dict[str, list[float]] = {}
 _totals: dict[str, torch.Tensor | int] = {}
 _lock = threading.Lock()
+# inside :func:`capturing`: the capture's recorded pairs, or None
+_capturing = False
+_pairs: list | None = None
 
 
 def enabled() -> bool:
-    """True while a profiler records on this thread."""
+    """True while a profiler records on this thread; inside
+    :func:`capturing`, while the capture records the counters."""
+    if _capturing:
+        return _pairs is not None
     return torch.autograd._profiler_enabled()
 
 
@@ -75,20 +92,47 @@ class _Span:
 def span(name: str):
     """A ``record_function`` range named ``name`` while a profiler
     records; a shared no-op context otherwise. The spans of one unit are
-    those inside its root span's range."""
-    if not torch.autograd._profiler_enabled():
+    those inside its root span's range. Off inside :func:`capturing`."""
+    if _capturing or not torch.autograd._profiler_enabled():
         return _OFF
     return _Span(name)
 
 
 def count(name: str, value: torch.Tensor | int) -> None:
     """Add ``value`` (a tensor, left on its device, or an int) to the
-    total ``name`` while a profiler records; nothing otherwise. A call
-    site whose value costs device work checks :func:`enabled` first."""
+    total ``name`` while a profiler records; during a capture, record
+    the pair instead, if it records the counters; nothing otherwise. A
+    call site whose value costs device work checks :func:`enabled`
+    first."""
+    if _capturing:
+        if _pairs is not None:
+            _pairs.append((name, value))
+        return
     if not torch.autograd._profiler_enabled():
         return
     with _lock:
         _totals[name] = _totals[name] + value if name in _totals else value
+
+
+@contextlib.contextmanager
+def capturing(record: bool):
+    """Around a CUDA graph's capture. With ``record``, :func:`enabled`
+    is true and :func:`count` appends its pairs to the yielded list;
+    without, :func:`enabled` is false and the block yields None."""
+    global _capturing, _pairs
+    _capturing, _pairs = True, [] if record else None
+    try:
+        yield _pairs
+    finally:
+        _capturing, _pairs = False, None
+
+
+def add(pairs) -> None:
+    """:func:`count` each recorded ``(name, value)`` pair after a
+    graph's replay: a copy of each tensor value, since the value is the
+    graph's output, which the next replay overwrites."""
+    for name, value in pairs:
+        count(name, value.clone() if torch.is_tensor(value) else value)
 
 
 def counts() -> dict[str, float]:

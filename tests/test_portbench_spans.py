@@ -100,12 +100,20 @@ def _new_metrics(cell):
             and "import spans" in _reader(m["name"]).read_text()]
 
 
+# counters only a run on a card gives: the train step's CUDA graphs
+# engage on a CUDA device alone, so a CPU run leaves the metric out
+CARD_ONLY = ("graph_share.train",)
+
+
 @pytest.mark.parametrize("cell", helpers.CELLS)
 def test_a_tiny_traced_run_reads_the_program_metrics(runs, cell):
     got = runs[0][cell]["metrics"]
     metrics = _new_metrics(cell)
     assert metrics
     for m in metrics:
+        if m["name"] in CARD_ONLY:
+            assert m["name"] not in got, m["name"]
+            continue
         value = got[m["name"]]["value"]
         if m["name"].startswith("live_share."):
             assert 0.0 < value <= 100.0, m["name"]
