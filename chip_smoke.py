@@ -562,15 +562,19 @@ def kernel_phase(cfg: Config, seed: int, dev: torch.device, situ: dict
 
 
 @contextlib.contextmanager
-def captured_page_indices():
+def captured_page_indices(clone: bool = False):
     """Inside, every ``hash_paged.page_indices`` call's (page_idx, local,
-    frac) is appended to the list this yields."""
+    frac) is appended to the list this yields; with ``clone`` page_idx is
+    a copy taken at the call, before ``paged_encode_rays`` rewrites its
+    deduped levels with run pages (after which a clamped run no longer
+    shows)."""
     orig = hash_paged.page_indices
     captured = []
 
     def capture(points, meta):
-        captured.append(orig(points, meta))
-        return captured[-1]
+        out = orig(points, meta)
+        captured.append((out[0].clone(), *out[1:]) if clone else out)
+        return out
 
     with mock.patch.object(hash_paged, "page_indices", capture):
         yield captured
@@ -2800,16 +2804,54 @@ def no_dedup(cfg: Config) -> Config:
         cfg.model, encode_dedup=False, dense_two_pass_dedup=False))
 
 
+def add_runs(counts: dict, kind: str, page_idx: torch.Tensor,
+             budgets: tuple[int, ...], s: int) -> None:
+    """Each deduped level's largest run count over rows of ``s`` samples
+    of ``page_idx`` [L, N] into ``counts``: "<kind> L<level>": [largest
+    run count, budget], the larger of the two where the key is there."""
+    for lvl, b in enumerate(budgets):
+        if not b:
+            continue
+        pl = page_idx[lvl].reshape(-1, s)
+        runs = int((1 + (pl[:, 1:] != pl[:, :-1]).sum(dim=1)).max())
+        key = f"{kind} L{lvl}"
+        counts[key] = [max(runs, counts.get(key, [0])[0]), b]
+
+
 def run_counts(fn) -> tuple[dict, object]:
-    """``fn()`` with the run counts recorded (``hash_paged.recording_runs``):
-    ({"<kind> L<level>": [largest run count, budget]}, what fn returned)."""
-    with hash_paged.recording_runs() as rec:
-        out = fn()
+    """``fn()``, and the run counts of the encodes inside it, from the
+    page indices they compute (``captured_page_indices``): ({"<kind>
+    L<level>": [largest run count, budget]}, what fn returned). Kind
+    "rays": each ray encode (``hash_paged.paged_encode_rays``), a ray's
+    runs against its budget, counted on a copy taken before the encode
+    writes run pages over them. Kind "compacted": each dense two-pass
+    stream with ``dense_two_pass_dedup`` (``hash_field.query_compacted``),
+    JAX's run-time check, pseudo-rows of ``n_samples`` against
+    ``compacted_budgets``. Host code must run: a CUDA graph's replay
+    computes no page indices here."""
+    encode_rays = hash_paged.paged_encode_rays
+    query_compacted = hash_field.query_compacted
     counts = {}
-    for e in rec:
-        key = f"{e['kind']} L{e['level']}"
-        runs = int(e["runs"])
-        counts[key] = [max(runs, counts.get(key, [0])[0]), e["budget"]]
+
+    def rays(points, pages, meta, budgets, *args, **kwargs):
+        with captured_page_indices(clone=True) as captured:
+            out = encode_rays(points, pages, meta, budgets, *args, **kwargs)
+        add_runs(counts, "rays", captured[0][0], budgets, points.shape[1])
+        return out
+
+    def compacted(params, points, cfg, *args, **kwargs):
+        with captured_page_indices() as captured:
+            out = query_compacted(params, points, cfg, *args, **kwargs)
+        n, s2 = points.shape[0], cfg.n_samples
+        budgets = hash_field.compacted_budgets(cfg, s2)
+        if (cfg.dense_two_pass_dedup and budgets is not None
+                and n % s2 == 0 and n >= s2):
+            add_runs(counts, "compacted", captured[0][0], budgets, s2)
+        return out
+
+    with mock.patch.object(hash_paged, "paged_encode_rays", rays), \
+            mock.patch.object(hash_field, "query_compacted", compacted):
+        out = fn()
     return counts, out
 
 
@@ -2820,7 +2862,7 @@ def check_runs(path: str, counts: dict) -> None:
             if k.startswith("rays") and v[0] > v[1]}
     if over or not counts:
         raise RuntimeError(f"{path}: run counts over their budgets {over} "
-                           f"(or none recorded)")
+                           f"(or none counted)")
 
 
 def _tree_equal(a: dict, b: dict) -> list[str]:
@@ -2836,7 +2878,7 @@ def steps_in_turns(make, batches: list, dev: torch.device, path: str,
     numbers. The grads of a window's last step, the metrics of every step
     and the params and grid at the end must be bitwise equal. Step ms on
     the host clock, launches per mode, one profiled step of each and the
-    run counts of one step with dedup on."""
+    run counts of one eager step (``train_step.eager``) with dedup on."""
     poses, intr = cameras(dev)
     runs = {}
     for name in ("on", "off"):
@@ -2845,9 +2887,10 @@ def steps_in_turns(make, batches: list, dev: torch.device, path: str,
                       "grid": grid, "k": 0, "ms": [], "metrics": [],
                       "grads": [], "launches": dict.fromkeys(ALL_KERNELS, 0)}
 
-    def one_step(r, k):
-        r["grid"], m = r["step"](r["params"], r["grid"], poses, intr,
-                                 STEP0 + k, *batches[k % len(batches)])
+    def one_step(r, k, eager=False):
+        step = r["step"].eager if eager else r["step"]
+        r["grid"], m = step(r["params"], r["grid"], poses, intr, STEP0 + k,
+                            *batches[k % len(batches)])
         return m
 
     for name in ("off", "on", "on", "off"):
@@ -2887,7 +2930,7 @@ def steps_in_turns(make, batches: list, dev: torch.device, path: str,
         out[name] = {"step_ms": r["ms"], "launches": r["launches"],
                      "profile": profile_call(lambda: one_step(r, k),
                                              f"{path} step, dedup {name}")}
-    out["runs"], _ = run_counts(lambda: one_step(on, on["k"] + 1))
+    out["runs"], _ = run_counts(lambda: one_step(on, on["k"] + 1, True))
     check_runs(f"{path} step", out["runs"])
     log(f"{path}: step ms dedup off {[round(t, 2) for t in off['ms']]} vs "
         f"on {[round(t, 2) for t in on['ms']]}; device ms "
@@ -3006,7 +3049,7 @@ def dense_dedup(fields: dict, b_list: list, noise, dev: torch.device) -> dict:
         log(f"dense {name}: compacted stream runs (largest, budget) "
             f"{counts}: the check {'holds' if ok else 'fails (flat)'}")
         if not counts:
-            raise RuntimeError(f"dense {name}: no compacted run recorded")
+            raise RuntimeError(f"dense {name}: no compacted run counted")
     for name in ("RS/8", "RS"):
         def make(on, p=fields[name]["params"]):
             c = on_cfg if on else no_dedup(cfg)

@@ -54,7 +54,9 @@ class ModelConfig:
     sampler_mode: str = "occ"       # 'occ' | 'dense'
     sample_near: float = 0.0
     dense_two_pass: bool = False     # TRAIN early-stop compaction (dense)
-    dense_two_pass_dedup: bool = False   # check the survivor stream's runs
+    # JAX's run-time branch (survivor-stream dedup if its run counts fit);
+    # the port's pass 2 encodes flat, the same on either branch
+    dense_two_pass_dedup: bool = False
     occ_grid_res: int = 128
     occ_segments: int = 128
     occ_keep: int = 8

@@ -242,8 +242,8 @@ def compacted_budgets(cfg: ModelConfig, s2: int) -> tuple[int, ...] | None:
     samples of the dense two-pass's compacted survivor stream (JAX
     ``hash_field.compacted_budgets``): twice the certified per-ray budget
     plus 16, rounded up to 8, kept while at most ``dedup_max_frac * s2``.
-    Not certified: a pseudo-row spans several rays' prefixes, so
-    :func:`query_compacted` checks the run counts at run time."""
+    Not certified: a pseudo-row spans several rays' prefixes, so JAX's
+    ``query_compacted`` checks the run counts at run time."""
     base = ray_budgets(cfg)
     if base is None or cfg.sampler_mode != "dense":
         return None
@@ -285,48 +285,19 @@ def query_rays(params: Params, points: torch.Tensor, cfg: ModelConfig,
     return _head(params, feat, level_weights, cfg)
 
 
-def compacted_runs(page_idx: torch.Tensor, budgets: tuple[int, ...],
-                   s2: int) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
-    """JAX ``query_compacted``'s run-time check on the compacted stream's
-    page indices [L, N] (N a multiple of ``s2``): per deduped level the
-    largest run count of a pseudo-row of ``s2`` samples, and ``ok``, a
-    0-d bool tensor: every level's count within its budget. On the device;
-    nothing is read on the host."""
-    ok = torch.ones((), dtype=torch.bool, device=page_idx.device)
-    runs = {}
-    for lvl, b in enumerate(budgets):
-        if not b:
-            continue
-        runs[lvl] = hash_paged.max_runs(page_idx[lvl].reshape(-1, s2))
-        ok = ok & (runs[lvl] <= b)
-    return ok, runs
-
-
 def query_compacted(params: Params, points: torch.Tensor, cfg: ModelConfig,
                     level_weights=None, consts: Params | None = None
                     ) -> torch.Tensor:
     """Flat [N, 3] query of the dense two-pass's compacted survivor
-    stream (``models/renderer.py``, pass 2).
+    stream (``models/renderer.py``, pass 2): the flat :func:`query`.
 
     With ``dense_two_pass_dedup`` JAX checks at run time whether each
     deduped level's run counts over pseudo-rows of ``n_samples`` fit
     :func:`compacted_budgets`, and takes the run-dedup encode if they do,
     else the flat one; without it, the flat one. Where the counts fit, no
-    run id clamps, so the dedup's page indices are the flat ones: every
-    branch gives the flat encode's inputs, and the port encodes flat. The
-    check (:func:`compacted_runs`) runs only into an open
-    ``hash_paged.recording_runs`` list, as ``"compacted"`` entries, with
-    no host sync.
+    run id clamps, so the dedup's page indices are the flat ones; where
+    they do not, JAX encodes flat. Every branch gives the flat encode's
+    inputs, so the port encodes flat.
     """
-    n = points.shape[0]
-    s2 = cfg.n_samples
-    budgets = compacted_budgets(cfg, s2)
-    if (cfg.dense_two_pass_dedup and hash_paged.recording()
-            and budgets is not None and n % s2 == 0 and n >= s2):
-        x = contract(points, cfg.contraction_radius)
-        page_idx, _, _ = hash_paged.page_indices(x.detach(), paged_meta(cfg))
-        _, runs = compacted_runs(page_idx, budgets, s2)
-        for lvl, count in runs.items():
-            hash_paged.record_runs("compacted", lvl, budgets[lvl], count)
     return query(params, points, cfg, level_weights=level_weights,
                  consts=consts)

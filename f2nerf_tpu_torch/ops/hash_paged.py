@@ -39,7 +39,6 @@ autograd, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import NamedTuple
 
@@ -337,45 +336,6 @@ def dedup_budgets(meta: PagedMeta, s_per_ray: int, march: float,
     return tuple(out)
 
 
-_run_log: list | None = None
-
-
-@contextlib.contextmanager
-def recording_runs(record: bool = True):
-    """Record the run counts of every deduped level encoded inside the
-    block: yields a list that gains one dict per level and call,
-    ``{"kind": "rays" | "compacted", "level", "budget", "runs"}``, where
-    ``runs`` is the largest run count of a ray (of a pseudo-row for
-    ``"compacted"``), a 0-d device tensor: nothing is read on the host
-    until the caller reads it. ``record`` False records nothing inside
-    the block, even under an outer list, and yields None (a CUDA graph
-    captured without the counts)."""
-    global _run_log
-    outer, _run_log = _run_log, [] if record else None
-    try:
-        yield _run_log
-    finally:
-        _run_log = outer
-
-
-def recording() -> bool:
-    """Whether a :func:`recording_runs` list is open."""
-    return _run_log is not None
-
-
-def record_runs(kind: str, level: int, budget: int,
-                runs: torch.Tensor) -> None:
-    """Add one entry to the open :func:`recording_runs` list, if any."""
-    if _run_log is not None:
-        _run_log.append({"kind": kind, "level": level, "budget": budget,
-                         "runs": runs})
-
-
-def max_runs(page_idx_l: torch.Tensor) -> torch.Tensor:
-    """The largest run count of a row of ``page_idx_l`` [R, S], 0-d."""
-    return (1 + (page_idx_l[:, 1:] != page_idx_l[:, :-1]).sum(dim=1)).max()
-
-
 def compute_runs(page_idx_l: torch.Tensor, budget: int, fill: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run-length structure of one level's page indices along rays (JAX
@@ -421,8 +381,6 @@ def paged_encode_rays(points: torch.Tensor, pages: torch.Tensor,
             if not b:
                 continue
             pl = page_idx[lvl].reshape(r, s)
-            if recording():
-                record_runs("rays", lvl, b, max_runs(pl))
             run_id, run_page = compute_runs(pl, b, meta.page_offset[lvl])
             page_idx[lvl] = run_page.gather(1, run_id.long()).reshape(r * s)
     local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]

@@ -11,11 +11,10 @@ The graphs of one *family* share all of it: the batch's shapes, which
 draws the step has, the occupancy warm-up, whether levels anneal, and
 the addresses of the tensors a replay reads or updates in place (the
 params, their grads and Adam's state, the poses, the intrinsics and the
-constants). A family holds one graph per refresh phase (None, 0 .. K-1)
-and set of instruments on, the graphs without instruments and those
-with the program's counters all captured when the family first comes,
-so that no capture falls among the steps that follow; a new family
-replaces the old one.
+constants). A family holds two graphs per refresh phase (None, 0 ..
+K-1), one without the program's counters and one with them, all
+captured when the family first comes, so that no capture falls among
+the steps that follow; a new family replaces the old one.
 
 Before each replay the step writes what changes from step to step into
 the family's buffers: the batch (copied), the draws (drawn in place from
@@ -31,19 +30,17 @@ The graphs of a family share one memory pool: they never run at once,
 and what a caller keeps is copied out of the pool right after its
 replay.
 
-Instruments: a graph runs the counters' device work only where it was
-captured with them. The step replays the graph without instruments
-unless a profiler records (``trace.enabled``: the graph with the
-counters) or run counts are recorded (``hash_paged.recording``: a graph
-with them, captured when first asked for). A capture records each ``trace.count``
-pair (``trace.capturing``) and each run count entry; after a replay the
-step adds copies of them to the totals or to the open run log, and
-``step.graphed`` counts the step while a profiler records. The kernel
-wrappers' launch counters (``trilinear_*.launches``) tick during a
-capture, which launches nothing, and not during a replay, which does:
-the capture puts them back and keeps the ticks, and each replay adds
-them. The eager step's inner spans time host work that a replay does
-not do: ``step.replay`` times the launch.
+Counters: a graph runs the counters' device work only where it was
+captured with them. The step replays the graph without them unless a
+profiler records (``trace.enabled``). A capture records each
+``trace.count`` pair (``trace.capturing``); after a replay the step adds
+copies of them to the totals, and ``step.graphed`` counts the step
+while a profiler records. The kernel wrappers' launch counters
+(``trilinear_*.launches``) tick during a capture, which launches
+nothing, and not during a replay, which does: the capture puts them
+back and keeps the ticks, and each replay adds them. The eager step's
+inner spans time host work that a replay does not do:
+``step.replay`` times the launch.
 """
 
 from __future__ import annotations
@@ -55,7 +52,6 @@ import torch
 from f2nerf_tpu_torch.convert import flatten
 from f2nerf_tpu_torch.kernels import trilinear
 from f2nerf_tpu_torch.models import occupancy
-from f2nerf_tpu_torch.ops import hash_paged
 from f2nerf_tpu_torch.train.optim import Optimizer
 from f2nerf_tpu_torch.train.step import (StepMetrics, StepNoise, StepPlan,
                                          draw_noise, level_weights,
@@ -65,17 +61,14 @@ from f2nerf_tpu_torch.utils import trace
 # the kernels whose wrappers count their launches
 _COUNTED = (trilinear.trilinear_fwd, trilinear.trilinear_bwd,
             trilinear.trilinear_bwd_frac)
-# instruments on: (program counters, run counts)
-_PLAIN, _COUNTERS = (False, False), (True, False)
 
 
 class _Graph(NamedTuple):
     """A captured graph and what its replays recompute for the
-    instruments: ``trace.count`` pairs and run count entries (None where
-    captured without them), and the counted kernels' launches."""
+    counters: ``trace.count`` pairs (None where captured without them)
+    and the counted kernels' launches."""
     graph: Any
     pairs: list | None
-    runs: list | None
     launches: tuple[int, ...]
 
 
@@ -110,7 +103,7 @@ class StepGraphs:
         self.optimizer = optimizer
         self.device_work = device_work
         self.family = None
-        self.graphs: dict = {}        # (refresh phase, instruments) -> _Graph
+        self.graphs: dict = {}        # (refresh phase, counters) -> _Graph
         self.buf: _Buffers | None = None
         self._bound = None            # what the family's work reads
         self.pool = None
@@ -166,7 +159,7 @@ class StepGraphs:
         if occ_grid is not None and not self._holds(occ_grid):
             b.grid.copy_(occ_grid)
             self._held = (occ_grid, occ_grid._version)
-        g = self._graph(phase, (trace.enabled(), hash_paged.recording()))
+        g = self._graph(phase, trace.enabled())
         with trace.span("step.replay"):
             g.graph.replay()
         opt.advance()
@@ -178,10 +171,6 @@ class StepGraphs:
             self._held = (occ_grid, occ_grid._version)
         if g.pairs is not None:
             trace.add(g.pairs)
-        if g.runs is not None:
-            for e in g.runs:
-                hash_paged.record_runs(e["kind"], e["level"], e["budget"],
-                                       e["runs"].clone())
         trace.count("step.graphed", 1)
         return occ_grid, StepMetrics(*metrics.unbind())
 
@@ -230,27 +219,24 @@ class StepGraphs:
         self._bound = (params, poses, intrinsics, consts, warmup)
         phases = ([None, *range(cfg.model.occ_refresh_phases)] if use_occ
                   else [None])
-        for instruments in (_PLAIN, _COUNTERS):
+        for counters in (False, True):
             for phase in phases:
-                self._graph(phase, instruments)
+                self._graph(phase, counters)
         self.family = family
 
-    def _graph(self, phase, instruments: tuple[bool, bool]) -> _Graph:
-        """The family's graph of ``phase`` with ``instruments``
-        (counters, run counts) on, captured the first time it is asked
-        for."""
-        key = (phase, instruments)
+    def _graph(self, phase, counters: bool) -> _Graph:
+        """The family's graph of ``phase``, with or without the counters'
+        device work, captured the first time it is asked for."""
+        key = (phase, counters)
         if key not in self.graphs:
-            counters, runs = instruments
             before = [fn.launches for fn in _COUNTED]
-            with trace.capturing(counters) as pairs, \
-                    hash_paged.recording_runs(runs) as run_log:
+            with trace.capturing(counters) as pairs:
                 graph = self._capture(lambda: self._work(phase))
             launches = tuple(fn.launches - n
                              for fn, n in zip(_COUNTED, before))
             for fn, n in zip(_COUNTED, before):
                 fn.launches = n
-            self.graphs[key] = _Graph(graph, pairs, run_log, launches)
+            self.graphs[key] = _Graph(graph, pairs, launches)
         return self.graphs[key]
 
     def _work(self, phase):

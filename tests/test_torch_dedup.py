@@ -13,7 +13,9 @@ Tolerances:
   bitwise (the encode's inputs are the same tensors' values), and so are
   a render and two train steps with ``encode_dedup`` on and off;
 * ``query_compacted`` against JAX's on both sides of its run-time check:
-  the field query's atol 1e-5 (``test_torch_render.py``).
+  the field query's atol 1e-5 (``test_torch_render.py``);
+* the run counts of the samplers' own rays against ``ray_budgets``:
+  integers, within the budget.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from f2nerf_tpu.ops.hash_encode import level_scales as jlevel_scales
 from f2nerf_tpu_torch.convert import tree_from_numpy
 from f2nerf_tpu_torch.core.config import Config as TConfig
 from f2nerf_tpu_torch.models import hash_field as thf
+from f2nerf_tpu_torch.models import occupancy, sampler
 from f2nerf_tpu_torch.models import renderer as trend
 from f2nerf_tpu_torch.ops import hash_paged as thp
 from f2nerf_tpu_torch.ops.hash_encode import level_scales
@@ -40,6 +43,8 @@ from f2nerf_tpu_torch.train import step as tstep
 from test_hash import _ray_points
 from test_torch_train import _setup as train_setup
 from test_torch_train import jax_noise
+
+CPU = torch.device("cpu")
 
 
 def _tcfg(jcfg: JConfig) -> TConfig:
@@ -127,8 +132,7 @@ def test_compute_runs_bitwise(kind):
         assert tid.dtype == torch.int32 and tpage.dtype == torch.int32
         np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
         np.testing.assert_array_equal(tpage.numpy(), np.asarray(jpage))
-        runs = int(thp.max_runs(torch.tensor(pl)))
-        assert runs == int((1 + (np.diff(pl, axis=1) != 0).sum(1)).max())
+        runs = int((1 + (np.diff(pl, axis=1) != 0).sum(1)).max())
         clamped |= runs > b
     assert clamped == (kind == "clamp")
 
@@ -205,24 +209,6 @@ def test_paged_encode_rays_bitwise_flat(kind):
         assert torch.equal(a, b)
 
 
-def test_recording_runs():
-    """``recording_runs`` gets one entry a deduped level and call, with
-    its largest run count; nothing is recorded outside the block."""
-    jm, tm, pages, pts, budgets, _ = _encode_inputs("diagonal")
-    with torch.no_grad(), thp.recording_runs() as runs:
-        thp.paged_encode_rays(torch.from_numpy(pts),
-                              torch.from_numpy(pages), tm, budgets,
-                              compute_dtype=torch.float32)
-    assert [(e["kind"], e["level"], e["budget"]) for e in runs] == [
-        ("rays", lvl, b) for lvl, b in enumerate(budgets) if b]
-    pidx, _, _ = thp.page_indices(torch.from_numpy(pts.reshape(-1, 3)), tm)
-    for e in runs:
-        pl = pidx[e["level"]].reshape(pts.shape[:2]).numpy()
-        assert int(e["runs"]) == int(
-            (1 + (np.diff(pl, axis=1) != 0).sum(1)).max()) <= e["budget"]
-    assert not thp.recording()
-
-
 def _deduped(which, tiny_cfg, occ_cfg):
     """``tiny_cfg`` / ``occ_cfg`` with more samples a ray, so that level 0
     is deduped (the tiny configs' rays are too short to dedup any)."""
@@ -233,6 +219,48 @@ def _deduped(which, tiny_cfg, occ_cfg):
                                                                **kw))
     assert jhf.ray_budgets(jcfg.model) == (24, 0)
     return jcfg
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["TRAIN", "VALIDATE"])
+@pytest.mark.parametrize("which", ["occ", "tiny"], ids=["occ", "dense"])
+def test_ray_budgets_hold_on_the_samplers_rays(which, train, tiny_cfg,
+                                               occ_cfg):
+    """The certified budgets bound the runs of every ray the sampler
+    gives: each ray's largest run count, from the page indices of its
+    contracted samples, is at most ``ray_budgets``, so no run id clamps
+    and the dedup encode reads the flat encode's pages."""
+    tcfg = _tcfg(_deduped(which, tiny_cfg, occ_cfg))
+    m = tcfg.model
+    budgets = thf.ray_budgets(m)
+    gen = torch.Generator().manual_seed(8)
+    n_rays = 256
+    o = torch.rand((n_rays, 3), generator=gen) * 0.6 - 0.3
+    d = torch.randn((n_rays, 3), generator=gen)
+    d = d / d.norm(dim=-1, keepdim=True)
+    noise = tstep.draw_noise(tcfg, 7, n_rays, CPU) if train else None
+    if m.sampler_mode == "occ":
+        # about a third of the cells occupied, scattered along every ray
+        g = m.occ_grid_res
+        occ = (torch.rand((g, g, g), generator=gen) < 0.3).float()
+        vals = occupancy.occ_values(torch.stack([occ, torch.zeros_like(occ)]),
+                                    m)
+        pts = occupancy.sample_rays_occ(
+            o, d, vals, m, rank_u=noise.rank if train else None,
+            within_u=noise.within if train else None,
+            explore=noise.explore if train else None).pts
+    else:
+        pts = sampler.sample_rays(o, d, m,
+                                  u=noise.march if train else None).pts
+    r, s = pts.shape[:2]
+    pidx, _, _ = thp.page_indices(
+        thf.contract(pts.reshape(-1, 3), m.contraction_radius),
+        thf.paged_meta(m))
+    for lvl, b in enumerate(budgets):
+        if not b:
+            continue
+        pl = pidx[lvl].reshape(r, s).numpy()
+        runs = 1 + (np.diff(pl, axis=1) != 0).sum(1)
+        assert 1 < runs.max() <= b, (lvl, int(runs.max()), b)
 
 
 def _render_setup(jcfg, seed):
@@ -323,9 +351,10 @@ def _compacted_case(tiny_cfg, coherent):
 
 @pytest.mark.parametrize("coherent", [True, False])
 def test_query_compacted_check(coherent, tiny_cfg):
-    """Both sides of JAX's run-time check: ``ok`` and the run counts
-    equal the ones JAX's ``query_compacted`` computes, and the features
-    equal JAX's whichever branch it takes."""
+    """Both sides of JAX's run-time check: JAX's ``ok`` and run counts
+    come out as the case expects, the port's page indices (so its run
+    counts) equal JAX's, and the features equal JAX's whichever branch
+    it takes, and the flat query's exactly."""
     jm, budgets, pts = _compacted_case(tiny_cfg, coherent)
     tm = _tcfg(JConfig(model=jm)).model
     jparams, jconsts = jrend.init(jax.random.key(3), jm, 4)
@@ -348,19 +377,13 @@ def test_query_compacted_check(coherent, tiny_cfg):
     tpidx, _, _ = thp.page_indices(
         thf.contract(torch.from_numpy(pts), tm.contraction_radius),
         thf.paged_meta(tm))
-    ok, runs = thf.compacted_runs(tpidx, budgets, tm.n_samples)
-    assert bool(ok) == want_ok
-    assert {k: int(v) for k, v in runs.items()} == want_runs
+    np.testing.assert_array_equal(tpidx.numpy(), np.asarray(jpidx))
     tfield = tree_from_numpy(tree["field"], "cpu")
-    with thp.recording_runs() as rec:
-        out = thf.query_compacted(tfield, torch.from_numpy(pts), tm)
-    assert [(e["kind"], e["level"], int(e["runs"])) for e in rec] == [
-        ("compacted", lvl, n) for lvl, n in want_runs.items()]
+    out = thf.query_compacted(tfield, torch.from_numpy(pts), tm)
     np.testing.assert_allclose(out.detach().numpy(), ref, rtol=0, atol=1e-5)
-    # the flat query's values exactly, and no check without the flag
+    # the flat query's values exactly, with the flag on and off
     flat = thf.query(tfield, torch.from_numpy(pts), tm)
     assert torch.equal(out, flat)
-    with thp.recording_runs() as rec:
-        thf.query_compacted(tfield, torch.from_numpy(pts), dataclasses.replace(
-            tm, dense_two_pass_dedup=False))
-    assert rec == []
+    assert torch.equal(thf.query_compacted(
+        tfield, torch.from_numpy(pts),
+        dataclasses.replace(tm, dense_two_pass_dedup=False)), flat)

@@ -445,8 +445,9 @@ def _ray_samples(n_rays, n_samples, march, generator, device):
 def test_dedup_encode_bitwise_flat_on_the_card(cuda, dtype):
     """Run dedup at ``Config()``'s budgets on 2,048 rays of 64 samples:
     features, page gradient and point gradient bitwise the flat encode's
-    on the card (no run id clamps: the run counts are checked within
-    their budgets), and the kernels launched in both."""
+    on the card (no run id clamps: the run counts, from the page
+    indices, are checked within their budgets), and the kernels launched
+    in both."""
     cfg = Config().model
     budgets = hash_field.ray_budgets(cfg)
     meta = hash_field.paged_meta(cfg)
@@ -455,6 +456,12 @@ def test_dedup_encode_bitwise_flat_on_the_card(cuda, dtype):
              - 1).to(cuda)
     pts = _ray_samples(2048, 64, 64 / 256, g, cuda)
     cot = torch.randn((2048, 64, 32), generator=g).to(cuda)
+    page_idx = hash_paged.page_indices(pts.reshape(-1, 3), meta)[0]
+    for lvl, b in enumerate(budgets):
+        if b:
+            pl = page_idx[lvl].reshape(2048, 64)
+            runs = 1 + (pl[:, 1:] != pl[:, :-1]).sum(dim=1)
+            assert 1 <= int(runs.max()) <= b, (lvl, int(runs.max()), b)
     outs = []
     for dedup in (True, False):
         x = pts.clone().requires_grad_(True)
@@ -462,22 +469,18 @@ def test_dedup_encode_bitwise_flat_on_the_card(cuda, dtype):
         before = (trilinear.trilinear_fwd.launches,
                   trilinear.trilinear_bwd.launches,
                   trilinear.trilinear_bwd_frac.launches)
-        with hash_paged.recording_runs() as runs:
-            if dedup:
-                feat = hash_paged.paged_encode_rays(x, p, meta, budgets,
-                                                    compute_dtype=dtype)
-            else:
-                feat = hash_paged.paged_encode(
-                    x.reshape(-1, 3), p, meta,
-                    compute_dtype=dtype).reshape(2048, 64, -1)
+        if dedup:
+            feat = hash_paged.paged_encode_rays(x, p, meta, budgets,
+                                                compute_dtype=dtype)
+        else:
+            feat = hash_paged.paged_encode(
+                x.reshape(-1, 3), p, meta,
+                compute_dtype=dtype).reshape(2048, 64, -1)
         (feat * cot).sum().backward()
         after = (trilinear.trilinear_fwd.launches,
                  trilinear.trilinear_bwd.launches,
                  trilinear.trilinear_bwd_frac.launches)
         assert all(a == b + 1 for a, b in zip(after, before))
-        assert len(runs) == (sum(map(bool, budgets)) if dedup else 0)
-        for e in runs:
-            assert 1 <= int(e["runs"]) <= e["budget"], e
         outs.append((feat.detach(), p.grad, x.grad))
     for a, b in zip(*outs):
         assert torch.equal(a, b)

@@ -1,8 +1,8 @@
 """The train step's CUDA graphs (``train/step_graph.py``).
 
 On the CPU: where the graphs engage (``step.graphable``) and that every
-other case keeps the eager step; the graph key; the counters, run counts
-and kernel launches a capture records and each replay adds; the lr
+other case keeps the eager step; the graph key; the counters and
+kernel launches a capture records and each replay adds; the lr
 tensor of a capturable optimizer; and the whole graph path with a
 stand-in for ``torch.cuda.CUDAGraph`` whose replay runs the captured
 work again, bitwise against the eager step.
@@ -27,7 +27,6 @@ import torch
 from f2nerf_tpu_torch.core.config import Config, ModelConfig, TrainConfig
 from f2nerf_tpu_torch.kernels import trilinear
 from f2nerf_tpu_torch.models import renderer
-from f2nerf_tpu_torch.ops import hash_paged
 from f2nerf_tpu_torch.parallel.mesh import DataMesh
 from f2nerf_tpu_torch.train import optim as topt
 from f2nerf_tpu_torch.train import step as tstep
@@ -199,30 +198,28 @@ def _in_place(held, new, value) -> None:
 
 
 class _Replayed:
-    """Runs the captured work at each replay, under the instruments it
-    was captured with, and writes what they record into the capture's
-    lists in place, as a CUDA graph's replay recomputes its outputs at
-    fixed addresses; the optimizer sees a capture
+    """Runs the captured work at each replay, with or without the
+    counters as it was captured, and writes what they record into the
+    capture's list in place, as a CUDA graph's replay recomputes its
+    outputs at fixed addresses; the optimizer sees a capture
     (``optim._capturing``), which leaves the count to the step."""
 
     capturing = False
 
     def __init__(self, work, log):
         self.work, self.log = work, log
-        # the capture's own lists (None: captured without)
-        self.pairs, self.runs = trace._pairs, hash_paged._run_log
+        # the capture's own list (None: captured without)
+        self.pairs = trace._pairs
 
     def replay(self):
         self.log.append(self)
         _Replayed.capturing = True
         try:
-            with trace.capturing(self.pairs is not None) as pairs, \
-                    hash_paged.recording_runs(self.runs is not None) as runs:
+            with trace.capturing(self.pairs is not None) as pairs:
                 self.work()
         finally:
             _Replayed.capturing = False
         _in_place(self.pairs, pairs, lambda pair: pair[1])
-        _in_place(self.runs, runs, lambda e: e["runs"])
 
 
 @pytest.fixture
@@ -264,7 +261,7 @@ def test_stand_in_graphs_match_the_eager_step_bitwise(sampler, stand_in):
     e = _steps(cfg, s, 8, n, "eager")
     phases = cfg.model.occ_refresh_phases if sampler == "occ" else 0
     # one family: per refresh phase and one without a refresh, a graph
-    # without instruments and one with the counters
+    # without the counters and one with them
     assert len(stand_in["captures"]) == 2 * (phases + 1)
     assert len(stand_in["replays"]) == n - 1
     for k, (mg, me) in enumerate(zip(g["metrics"], e["metrics"])):
@@ -405,38 +402,9 @@ def test_untraced_replays_run_no_counter_work(stand_in):
     _steps(cfg, s, 41, 4)
     replays = stand_in["replays"]
     assert len(replays) == 3
-    assert all(g.pairs is None and g.runs is None for g in replays)
+    assert all(g.pairs is None for g in replays)
     traced = [g for g in stand_in["captures"] if g.pairs is not None]
     assert len(traced) == len(stand_in["captures"]) // 2
-
-
-def test_run_counts_recorded_under_replay(stand_in):
-    """Run counts recorded around a graphed step (a graph captured with
-    them when first asked for) are the eager step's, and stay as they
-    were after later replays."""
-    # a march short enough for the coarse level's budget
-    cfg = _cfg("dense")
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, n_samples=64, sample_l=1.0 / 32.0))
-    s = _setup(cfg, 11, CPU, 2)
-    got = {}
-    for how in ("eager", "graphed"):
-        params, poses, intr, grid = _fresh(s)
-        opt = topt.make_optimizer(params, cfg.train)
-        step_fn = tstep.make_train_step(cfg, opt)
-        fn = step_fn.eager if how == "eager" else step_fn
-        cam, ij, gt = (torch.tensor(x) for x in s["batches"][0])
-        fn(params, grid, poses, intr, 41, cam, ij, gt)
-        fn(params, grid, poses, intr, 42, cam, ij, gt)
-        with hash_paged.recording_runs() as rec:
-            fn(params, grid, poses, intr, 43, cam, ij, gt)
-        got[how] = [(e["kind"], e["level"], e["budget"], int(e["runs"]))
-                    for e in rec]
-        fn(params, grid, poses, intr, 43, cam, ij, gt)
-        assert [int(e["runs"]) for e in rec] == [x[3] for x in got[how]]
-    assert got["graphed"] == got["eager"] and got["eager"]
-    with_runs = [g for g in stand_in["captures"] if g.runs is not None]
-    assert len(with_runs) == 1 and stand_in["replays"][1] is with_runs[0]
 
 
 def test_kernel_launches_count_replays_not_captures(stand_in, monkeypatch):
