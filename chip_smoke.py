@@ -344,7 +344,8 @@ TRAIN_RAYS = bench.THROUGHPUT_RAYS
 STEP0 = bench.first_step(Config())        # 3072
 TRAIN_STEPS, STEADY_FROM = 24, 2
 CHECK_RAYS = 512
-ALL_KERNELS = ("trilinear_fwd", "trilinear_bwd", "trilinear_bwd_frac")
+TRILINEAR_KERNELS = ("trilinear_fwd", "trilinear_bwd", "trilinear_bwd_frac")
+ALL_KERNELS = TRILINEAR_KERNELS + ("page_index",)
 # the run-directory phase: Config.quality trained for RUN_STEPS steps
 RUN_STEPS, RUN_REPORT = 600, 50
 LOOP_STEPS = 40              # steps per timing window, loop vs bare step
@@ -365,7 +366,11 @@ def read_launches() -> dict:
 
 
 def check_launches(path: str, launches: dict, used: tuple) -> None:
-    """Every kernel in ``used`` launched on the path, no other did."""
+    """Every kernel in ``used`` launched on the path, no other did. A
+    path that encodes paged (``trilinear_fwd`` in ``used``) launches
+    ``page_index`` too, for the encode's index."""
+    if "trilinear_fwd" in used:
+        used = (*used, "page_index")
     log(f"launches on the {path} path: {launches}")
     for name, count in launches.items():
         if (count > 0) != (name in used):
@@ -561,28 +566,124 @@ def kernel_phase(cfg: Config, seed: int, dev: torch.device, situ: dict
             "in_situ": in_situ}
 
 
+# the cells' field (portbench/configs/*.json): 16 levels x 2 channels x 2^19
+CELL_MODEL = ModelConfig(n_levels=16, n_channels=2, log2_table_size=19)
+# points of the encodes page_index is timed on: the frame's reply render
+# (106x240 rays x 64 samples) and an occ-train step (4,096 rays x 64)
+INDEX_POINTS = {"frame": 106 * 240 * 64, "step": 4096 * 64}
+
+
+def index_bound_ms(n: int, levels: int) -> float:
+    """Least time of page_index on an H100 SXM: 12 B of point read and
+    4 + 24 B of page_idx and local_frac written per (level, point); its
+    ~30 integer and float operations a pair are far below either peak."""
+    return (n * 12 + n * levels * 28) / HBM_BYTES_PER_S * 1e3
+
+
+def plain_index(points: torch.Tensor, consts: tuple) -> tuple:
+    """What page_index replaces: its plain version's ATen passes, then
+    the concatenation of local (as floats) and frac."""
+    page_idx, local, frac = trilinear.page_index_ref(points, *consts)
+    return page_idx, torch.cat([local.float(), frac], dim=-1)
+
+
+def index_equal(points: torch.Tensor, meta, page_idx=None,
+                local_frac=None) -> None:
+    """page_index's outputs (or the given ones) bit for bit its plain
+    version's, the ATen passes and the concatenation it replaces."""
+    consts = hash_paged._meta_tensors(meta, points.device)
+    if page_idx is None:
+        page_idx, local_frac = trilinear.page_index(points, *consts)
+    want = plain_index(points, consts)
+    torch.cuda.synchronize()
+    if not (torch.equal(page_idx, want[0])
+            and torch.equal(local_frac, want[1])):
+        bad = int((page_idx != want[0]).sum()) + int(
+            (local_frac != want[1]).any(-1).sum())
+        raise RuntimeError(f"page_index differs from its plain version in "
+                           f"{bad} of {page_idx.numel()} pairs")
+
+
+def index_set(name: str, points: torch.Tensor, meta, flush) -> dict:
+    """page_index on one point set: bitwise against its plain version,
+    then timed L2 flushed beside its bound and the plain passes."""
+    index_equal(points, meta)
+    consts = hash_paged._meta_tensors(meta, points.device)
+    n = points.shape[0]
+    res = {"points": n, "levels": meta.n_levels,
+           "ms": cuda_ms(lambda: trilinear.page_index(points, *consts),
+                         flush=flush),
+           "warm_ms": cuda_ms(lambda: trilinear.page_index(points, *consts)),
+           "bound_ms": index_bound_ms(n, meta.n_levels),
+           "plain_ms": cuda_ms(lambda: plain_index(points, consts),
+                               flush=flush)}
+    log(f"page_index {name} N={n} L={meta.n_levels}: bitwise; "
+        f"{res['ms']:.4f} ms (L2 flushed), {res['warm_ms']:.4f} ms (back "
+        f"to back), bound {res['bound_ms']:.4f} ms "
+        f"({100 * res['bound_ms'] / res['ms']:.1f}%); plain "
+        f"{res['plain_ms']:.4f} ms")
+    return res
+
+
+def index_kernel_phase(seed: int, dev: torch.device) -> dict:
+    """page_index at the cells' field on uniform points of the frame's
+    and the step's sizes (checked and timed), then bitwise on the points
+    of the paths' own encodes: one serve-pose frame and particle render
+    at ``Config()``, and one full-frame render through the perspective
+    warp (its points clamped at +-1.999)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    meta = hash_field.paged_meta(CELL_MODEL)
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    sets = {name: index_set(f"cells {name}", torch.rand(
+                (n, 3), generator=g, device=dev) * 4 - 2, meta, flush)
+            for name, n in INDEX_POINTS.items()}
+    cfg = Config()
+    loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev))
+    pose = np.eye(3, 4, dtype=np.float32)
+    corridor = make_corridor_dataset(seed=seed)
+    wcfg = warp_cfg(cfg)
+    wloc = make_localizer(wcfg, seed, dev,
+                          params=o1_params(wcfg, seed + 6, dev),
+                          consts=warp_consts(corridor.poses, wcfg.model, dev))
+    with captured_encode_index(clone=True) as captured:
+        frame = loc.render_image(pose).cpu().numpy()
+        loc.optimize_pose_by_random_search(pose, frame, PARTICLES, 1.0)
+        wloc.render_image(corridor.poses[SERVE_VIEW])
+    for page_idx, local_frac, points, m in captured:
+        index_equal(points, m, page_idx, local_frac)
+    log(f"page_index in situ: {len(captured)} encodes bitwise (frame, "
+        f"particles, warp frame)")
+    return {"name": "page_index", "route": "cuda",
+            "source": "f2nerf_tpu_torch/kernels/csrc/page_index.cu",
+            "replaces": "none: the JAX package computes the index in XLA "
+                        "(f2nerf_tpu/ops/hash_paged.py _page_indices_lm)",
+            "launches": None, "bound_by": "bytes", "library_ms": None,
+            **sets["frame"], "sets": sets, "in_situ_encodes": len(captured)}
+
+
 @contextlib.contextmanager
-def captured_page_indices(clone: bool = False):
-    """Inside, every ``hash_paged.page_indices`` call's (page_idx, local,
-    frac) is appended to the list this yields; with ``clone`` page_idx is
-    a copy taken at the call, before ``paged_encode_rays`` rewrites its
-    deduped levels with run pages (after which a clamped run no longer
-    shows)."""
-    orig = hash_paged.page_indices
+def captured_encode_index(clone: bool = False):
+    """Inside, every ``hash_paged.encode_index`` call's (page_idx,
+    local_frac, points, meta) is appended to the list this yields; with
+    ``clone`` page_idx is a copy taken at the call, before
+    ``paged_encode_rays`` rewrites its deduped levels with run pages
+    (after which a clamped run no longer shows)."""
+    orig = hash_paged.encode_index
     captured = []
 
     def capture(points, meta):
-        out = orig(points, meta)
-        captured.append((out[0].clone(), *out[1:]) if clone else out)
-        return out
+        page_idx, local_frac = orig(points, meta)
+        captured.append((page_idx.clone() if clone else page_idx,
+                         local_frac, points, meta))
+        return page_idx, local_frac
 
-    with mock.patch.object(hash_paged, "page_indices", capture):
+    with mock.patch.object(hash_paged, "encode_index", capture):
         yield captured
 
 
 def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
     """The encode inputs the paths give the kernels, captured by wrapping
-    ``hash_paged.page_indices`` for one render each: "frame", one
+    ``hash_paged.encode_index`` for one render each: "frame", one
     full-frame 106x240 render at the serve pose (25,440 rays x 64
     samples = 1,628,160 points, the render of a mode-1 step and of every
     reply), and "particles", one mode-0 request's particle render (64
@@ -591,13 +692,12 @@ def in_situ_inputs(cfg: Config, seed: int, dev: torch.device) -> dict:
     the differential phase's O(1) features."""
     loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev))
     pose = np.eye(3, 4, dtype=np.float32)
-    with captured_page_indices() as captured:
+    with captured_encode_index() as captured:
         frame = loc.render_image(pose).cpu().numpy()
         loc.optimize_pose_by_random_search(pose, frame, PARTICLES, 1.0)
     haloed = loc.params["field"]["haloed"]
-    return {name: (haloed, page_idx.clone(),
-                   torch.cat([local.float(), frac], dim=-1))
-            for name, (page_idx, local, frac)
+    return {name: (haloed, page_idx.clone(), local_frac)
+            for name, (page_idx, local_frac, *_)
             in zip(("frame", "particles"), captured, strict=True)}
 
 
@@ -619,11 +719,10 @@ def warp_frame_inputs(seed: int, dev: torch.device,
     corridor = make_corridor_dataset(seed=seed)
     loc = make_localizer(cfg, seed, dev, params=o1_params(cfg, seed + 6, dev),
                          consts=warp_consts(corridor.poses, cfg.model, dev))
-    with captured_page_indices() as captured:
+    with captured_encode_index() as captured:
         loc.render_image(corridor.poses[SERVE_VIEW])
-    (page_idx, local, frac), = captured
-    return (loc.params["field"]["haloed"], page_idx,
-            torch.cat([local.float(), frac], dim=-1))
+    (page_idx, local_frac, *_), = captured
+    return loc.params["field"]["haloed"], page_idx, local_frac
 
 
 def warp_train_inputs(seed: int, dev: torch.device):
@@ -1344,7 +1443,7 @@ def narrow_channels_check(seed: int, dev: torch.device) -> dict:
     page_idx, local, frac = hash_paged.page_indices(pts, meta)
     lf = torch.cat([local.float(), frac], dim=-1)
     cot = torch.randn((65536, 24), generator=g, device=dev)
-    errs = {name: 0.0 for name in ALL_KERNELS}
+    errs = {name: 0.0 for name in TRILINEAR_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         haloed = hash_paged.halo_pages(pages, meta).to(dtype)
         out = trilinear.trilinear_fwd(haloed, page_idx, lf)
@@ -2086,12 +2185,12 @@ def two_pass_check(params, b, noise, bf16: bool) -> dict:
 def _capture_compacted(params, cfg: Config, b, noise) -> tuple:
     """The compacted survivor stream of one two-pass render: the
     (page_idx, local_frac) of pass 2's encode."""
-    with torch.no_grad(), captured_page_indices() as captured:
+    with torch.no_grad(), captured_encode_index() as captured:
         dense_render(params, cfg, b, noise)
     if len(captured) != 2:
         raise RuntimeError(f"{len(captured)} encodes in a two-pass render")
-    page_idx, local, frac = captured[1]
-    return page_idx, torch.cat([local.float(), frac], dim=-1)
+    page_idx, local_frac, *_ = captured[1]
+    return page_idx, local_frac
 
 
 def dense_timing(params, b_list, dev: torch.device, what: str) -> dict:
@@ -2820,7 +2919,7 @@ def add_runs(counts: dict, kind: str, page_idx: torch.Tensor,
 
 def run_counts(fn) -> tuple[dict, object]:
     """``fn()``, and the run counts of the encodes inside it, from the
-    page indices they compute (``captured_page_indices``): ({"<kind>
+    page indices they compute (``captured_encode_index``): ({"<kind>
     L<level>": [largest run count, budget]}, what fn returned). Kind
     "rays": each ray encode (``hash_paged.paged_encode_rays``), a ray's
     runs against its budget, counted on a copy taken before the encode
@@ -2834,13 +2933,13 @@ def run_counts(fn) -> tuple[dict, object]:
     counts = {}
 
     def rays(points, pages, meta, budgets, *args, **kwargs):
-        with captured_page_indices(clone=True) as captured:
+        with captured_encode_index(clone=True) as captured:
             out = encode_rays(points, pages, meta, budgets, *args, **kwargs)
         add_runs(counts, "rays", captured[0][0], budgets, points.shape[1])
         return out
 
     def compacted(params, points, cfg, *args, **kwargs):
-        with captured_page_indices() as captured:
+        with captured_encode_index() as captured:
             out = query_compacted(params, points, cfg, *args, **kwargs)
         n, s2 = points.shape[0], cfg.n_samples
         budgets = hash_field.compacted_budgets(cfg, s2)
@@ -4380,12 +4479,14 @@ def main() -> int:
     situ = in_situ_inputs(cfg, args.seed, dev)
     kernels = [kernel_phase(cfg, args.seed, dev, situ),
                bwd_kernel_phase(train_cfg(TRAIN_RAYS), args.seed, dev),
-               frac_kernel_phase(cfg, args.seed, dev, situ)]
+               frac_kernel_phase(cfg, args.seed, dev, situ),
+               index_kernel_phase(args.seed, dev)]
     del situ
     phase("warp kernels", warp_kernel_phase, args.seed, dev, kernels)
     narrow = narrow_channels_check(args.seed, dev)
     for k in kernels:
-        k["max_abs_err_c3"] = narrow[k["name"]]
+        # page_index has no channel width: nothing at C = 3 measures it
+        k["max_abs_err_c3"] = narrow.get(k["name"])
     paths = {"serving": phase("serving", serving_phase, cfg, args.seed, dev),
              "training": phase("training", training_phase,
                                train_cfg(TRAIN_RAYS), args.seed, dev),

@@ -21,6 +21,12 @@ wrappers. Together they port every TPU kernel of the JAX package.
   gives the JAX jnp branch's one-sided derivative (the Pallas hat form
   gives 0 there).
 
+Beside them, ``page_index`` (``csrc/page_index.cu``) turns the contracted
+points into the page_idx and local_frac those kernels take, in one pass;
+it ports no TPU kernel (the JAX package leaves the index to XLA), and its
+plain version is ``page_index_ref`` (``ops/hash_paged.page_indices``)
+with the concatenation.
+
 The haloed table is slot-major, [P, 128*C] with the C channels of slot
 s at columns s*C .. s*C + C - 1 (``ops/hash_paged.py``), so a corner is
 one vector load in the CUDA kernels.
@@ -44,6 +50,7 @@ _SUPPORTED_CHANNELS = (1, 2, 4, 8)
 # largest L*C of trilinear_fwd / trilinear_bwd_frac: a block's [32, L*C]
 # f32 tile in shared memory (kMaxRowFloats, csrc/trilinear_common.cuh)
 _MAX_LEVEL_CHANNELS = 256
+_U32 = 0xFFFFFFFF    # the index hashes in uint32, kept in int64
 
 
 def trilinear_fwd_ref(haloed: torch.Tensor, page_idx: torch.Tensor,
@@ -416,8 +423,104 @@ def trilinear_bwd_frac(haloed: torch.Tensor, page_idx: torch.Tensor,
     return d_local_frac
 
 
+def page_index_ref(points: torch.Tensor, scales: torch.Tensor,
+                   biases: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   n_pages: torch.Tensor, page_offset: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version, in parts: (page_idx [L, N] int32, local [L, N, 3]
+    int32, frac [L, N, 3] f32), which ``page_index`` gives as page_idx
+    and ``torch.cat([local.float(), frac], -1)``. ``hash_paged.
+    page_indices`` is this under a PagedMeta's constants; ``frac`` is
+    differentiable in ``points`` by autograd."""
+    pt = points[None, :, :] * scales[:, None, None] + biases[:, None, :]
+    f = torch.floor(pt.detach())
+    frac = (pt - f).float()
+    ip = f.to(torch.int32)                               # cell coords
+    blk = (ip >> 2).to(torch.int64) & _U32               # as uint32
+    local = ip & 3                                       # 4 cells a page axis
+
+    raw = (((blk[..., 0] * a) & _U32) + ((blk[..., 1] * b) & _U32)
+           + blk[..., 2]) & _U32
+    page = raw % n_pages
+    return (page + page_offset).to(torch.int32), local, frac
+
+
+def _check_page_index(points, scales, biases, *ints) -> None:
+    """Raise ValueError unless ``page_index`` takes these: points [N, 3]
+    f32, scales [L] f32, biases [L, 3] f32 and a, b, n_pages, page_offset
+    of L int64 each, all contiguous and on one device."""
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
+    n_levels = scales.numel()
+    if scales.dim() != 1 or tuple(biases.shape) != (n_levels, 3):
+        raise ValueError(f"scales must be [L] and biases [L, 3], got "
+                         f"{tuple(scales.shape)} and {tuple(biases.shape)}")
+    if len(ints) != 4 or any(t.numel() != n_levels for t in ints):
+        raise ValueError(f"a, b, n_pages and page_offset must hold "
+                         f"{n_levels} values each")
+    for name, t, dtype in (("points", points, torch.float32),
+                           ("scales", scales, torch.float32),
+                           ("biases", biases, torch.float32),
+                           *((f"level constant {k}", t, torch.int64)
+                             for k, t in enumerate(ints))):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != points.device:
+            raise ValueError(f"{name} is on {t.device}, points on "
+                             f"{points.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def page_index(points: torch.Tensor, scales: torch.Tensor,
+               biases: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               n_pages: torch.Tensor, page_offset: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page_idx [L, N] int32, local_frac [L, N, 6] f32) of points [N, 3]
+    f32 under the level constants ``hash_paged._meta_tensors`` keeps on
+    the device: bit for bit :func:`page_index_ref` and the concatenation.
+
+    On the card: one launch of ``csrc/page_index.cu``, which reads the
+    constants through device pointers (no host copy, so it captures into
+    a CUDA graph). Not differentiable itself: ``hash_paged.encode_index``
+    gives it the point gradient.
+    """
+    _check_page_index(points, scales, biases, a, b, n_pages, page_offset)
+    if points.device.type == "cpu":
+        page_idx, local, frac = page_index_ref(points, scales, biases, a, b,
+                                               n_pages, page_offset)
+        return page_idx, torch.cat([local.float(), frac], dim=-1)
+    if points.device.type != "cuda":
+        raise ValueError(f"page_index runs on cuda or cpu, not "
+                         f"{points.device}")
+    from f2nerf_tpu_torch.kernels.build import load_library
+
+    n, n_levels = points.shape[0], scales.numel()
+    lib = load_library("page_index")
+    fn = lib.page_index
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   *[ctypes.c_void_p] * 9]
+    fn.restype = ctypes.c_int
+    page_idx = torch.empty((n_levels, n), dtype=torch.int32,
+                           device=points.device)
+    local_frac = torch.empty((n_levels, n, 6), dtype=torch.float32,
+                             device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        rc = fn(points.data_ptr(), n, n_levels,
+                *(t.data_ptr() for t in (scales, biases, a, b, n_pages,
+                                         page_offset, page_idx, local_frac)),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"page_index kernel launch failed: CUDA error "
+                           f"{rc}")
+    page_index.launches += 1
+    return page_idx, local_frac
+
+
 # launches of each CUDA kernel in this process (the plain versions on
 # the CPU do not count)
+page_index.launches = 0
 trilinear_fwd.launches = 0
 trilinear_bwd.launches = 0
 trilinear_bwd_frac.launches = 0

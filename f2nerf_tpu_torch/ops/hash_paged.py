@@ -31,10 +31,12 @@ per-level row gather with the trilinear contraction. Its backward calls
 writes the gradient of the haloed table with the page reduction fused in
 (deterministic, no float atomics), and ``trilinear_bwd_frac`` when the
 points do (localizer modes 1/2), which writes the gradient of the
-trilinear fractions; a frozen table pays for no page gradient. The
-transpose of the halo (``halo_pages``' rolls and concatenations) and the
-path from points to fractions (:func:`page_indices`) are left to
-autograd, as the JAX package leaves them to XLA.
+trilinear fractions; a frozen table pays for no page gradient. Its
+inputs, page_idx and local_frac, come from :func:`encode_index`: on the
+card one launch of the ``page_index`` kernel, bit for bit
+:func:`page_indices` and the concatenation, the plain version that the
+CPU runs. The transpose of the halo (``halo_pages``' rolls and
+concatenations) is left to autograd, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from f2nerf_tpu_torch.kernels.trilinear import (ROW_PAD, trilinear_bwd,
+from f2nerf_tpu_torch.kernels.trilinear import (ROW_PAD, page_index,
+                                                page_index_ref,
+                                                trilinear_bwd,
                                                 trilinear_bwd_frac,
                                                 trilinear_fwd)
 from f2nerf_tpu_torch.utils import trace
@@ -53,7 +57,6 @@ from f2nerf_tpu_torch.utils import trace
 BLOCK = 4            # cells per page axis
 HALO = BLOCK + 1     # haloed page axis
 PAGE_CELLS = HALO * HALO * HALO   # 125 haloed cells, lane-padded to ROW_PAD
-_U32 = 0xFFFFFFFF
 
 
 class PagedMeta(NamedTuple):
@@ -168,18 +171,49 @@ def page_indices(points: torch.Tensor, meta: PagedMeta
     (d frac / d points = the level's scale; floor's gradient is zero,
     as in JAX).
     """
-    scales, biases, a, b, n_pages, offs = _meta_tensors(meta, points.device)
-    pt = points[None, :, :] * scales[:, None, None] + biases[:, None, :]
-    f = torch.floor(pt.detach())
-    frac = (pt - f).float()
-    ip = f.to(torch.int32)                               # cell coords
-    blk = (ip >> 2).to(torch.int64) & _U32               # as uint32
-    local = ip & (BLOCK - 1)
+    return page_index_ref(points, *_meta_tensors(meta, points.device))
 
-    raw = (((blk[..., 0] * a) & _U32) + ((blk[..., 1] * b) & _U32)
-           + blk[..., 2]) & _U32
-    page = raw % n_pages
-    return (page + offs).to(torch.int32), local, frac
+
+def encode_index(points: torch.Tensor, meta: PagedMeta
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(page_idx [L, N] int32, local_frac [L, N, 6] f32) of points [N, 3]:
+    :func:`page_indices` with local (as floats) and frac concatenated,
+    the inputs of :class:`_EncodeCore`. On the card one launch of the
+    ``page_index`` kernel, bit for bit the same; where the points need a
+    gradient, through :class:`_IndexGrad`. On the CPU the plain passes,
+    differentiated by autograd."""
+    consts = _meta_tensors(meta, points.device)
+    points = points.contiguous()
+    if points.is_cuda and torch.is_grad_enabled() and points.requires_grad:
+        return _IndexGrad.apply(points, *consts)
+    return page_index(points, *consts)
+
+
+def index_points_grad(g: torch.Tensor, scales: torch.Tensor
+                      ) -> torch.Tensor:
+    """d points [N, 3] from the cotangent g [L, N, 6] of local_frac: the
+    ops autograd runs for ``frac = points * scale + bias - floor(...)``
+    (``local`` and ``floor`` carry none), so the gradient is the plain
+    path's bit for bit."""
+    return (g[..., 3:6] * scales[:, None, None]).sum(0)
+
+
+class _IndexGrad(torch.autograd.Function):
+    """:func:`encode_index` on the card for points that need a gradient
+    (the localizer's modes 1 and 2)."""
+
+    @staticmethod
+    def forward(ctx, points, scales, *consts):
+        page_idx, local_frac = page_index(points, scales, *consts)
+        ctx.save_for_backward(scales)
+        ctx.mark_non_differentiable(page_idx)
+        return page_idx, local_frac
+
+    @staticmethod
+    def backward(ctx, _, g):
+        scales, = ctx.saved_tensors
+        return (index_points_grad(g, scales),
+                *[None] * (len(ctx.needs_input_grad) - 1))
 
 
 @functools.lru_cache(maxsize=64)
@@ -286,8 +320,7 @@ def paged_encode(points: torch.Tensor, pages: torch.Tensor,
     """
     if haloed is None:
         haloed = halo_pages(pages, meta).to(compute_dtype)
-    page_idx, local, frac = page_indices(points, meta)
-    local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
+    page_idx, local_frac = encode_index(points, meta)
     return _EncodeCore.apply(haloed, page_idx, local_frac, chunk)
 
 
@@ -375,7 +408,7 @@ def paged_encode_rays(points: torch.Tensor, pages: torch.Tensor,
     r, s = points.shape[0], points.shape[1]
     if haloed is None:
         haloed = halo_pages(pages, meta).to(compute_dtype)
-    page_idx, local, frac = page_indices(points.reshape(r * s, 3), meta)
+    page_idx, local_frac = encode_index(points.reshape(r * s, 3), meta)
     with trace.span("compute_runs"):
         for lvl, b in enumerate(budgets):
             if not b:
@@ -383,6 +416,5 @@ def paged_encode_rays(points: torch.Tensor, pages: torch.Tensor,
             pl = page_idx[lvl].reshape(r, s)
             run_id, run_page = compute_runs(pl, b, meta.page_offset[lvl])
             page_idx[lvl] = run_page.gather(1, run_id.long()).reshape(r * s)
-    local_frac = torch.cat([local.float(), frac], dim=-1)   # [L, N, 6]
     feat = _EncodeCore.apply(haloed, page_idx, local_frac, chunk)
     return feat.reshape(r, s, -1)

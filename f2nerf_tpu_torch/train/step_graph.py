@@ -36,9 +36,10 @@ profiler records (``trace.enabled``). A capture records each
 ``trace.count`` pair (``trace.capturing``); after a replay the step adds
 copies of them to the totals, and ``step.graphed`` counts the step
 while a profiler records. The kernel wrappers' launch counters
-(``trilinear_*.launches``) tick during a capture, which launches
-nothing, and not during a replay, which does: the capture puts them
-back and keeps the ticks, and each replay adds them. The eager step's
+(``trilinear_*.launches``, ``page_index.launches``) tick during a
+capture, which launches nothing, and not during a replay, which does:
+the capture puts them back and keeps the ticks, and each replay adds
+them. The eager step's
 inner spans time host work that a replay does not do:
 ``step.replay`` times the launch.
 """
@@ -60,7 +61,7 @@ from f2nerf_tpu_torch.utils import trace
 
 # the kernels whose wrappers count their launches
 _COUNTED = (trilinear.trilinear_fwd, trilinear.trilinear_bwd,
-            trilinear.trilinear_bwd_frac)
+            trilinear.trilinear_bwd_frac, trilinear.page_index)
 
 
 class _Graph(NamedTuple):

@@ -51,6 +51,8 @@ from f2nerf_tpu_torch.kernels import trilinear as ttri
 from f2nerf_tpu_torch.models import hash_field as thf
 from f2nerf_tpu_torch.ops import hash_paged as thp
 
+import test_torch_page_index as index_sets
+
 # small layouts: both hashed levels (tiny), a dense+hashed mix, the full
 # default model, and the two ends of the channel counts the kernels take
 CONFIGS = {
@@ -130,6 +132,25 @@ def test_page_indices_exact(name, span):
         blk = np.floor(pts[None] * jm.scales[:, None, None]
                        + jm.biases[:, None, :]) // 4
         assert blk.max() > 10000 and blk.min() < -10000
+
+
+@pytest.mark.parametrize("kind", index_sets.KINDS)
+@pytest.mark.parametrize("name", sorted(index_sets.METAS))
+def test_page_indices_exact_on_the_kernel_sets(name, kind):
+    """The point sets the ``page_index`` kernel is held to on the card,
+    cell and block edges and the warp's clamp among them, against the
+    JAX package's index: page and local exactly (floor does not flip on
+    an edge), frac as in :func:`test_page_indices_exact`."""
+    kw = index_sets.METAS[name]
+    jm = jhf.paged_meta(JModelConfig(**kw))
+    tm = thf.paged_meta(TModelConfig(**kw))
+    pts = index_sets.index_points(kind, tm)
+    pj, lj, fj = jhp._page_indices_lm(jnp.asarray(pts.numpy()), jm)
+    pt_, lt, ft = thp.page_indices(pts, tm)
+    assert pt_.shape == (tm.n_levels, pts.shape[0])
+    np.testing.assert_array_equal(pt_.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), atol=2e-4)
 
 
 def test_hash_matches_uint32_arithmetic():

@@ -39,10 +39,19 @@ run them on the inputs of the perspective-warp paths (a full-frame
 render at a corridor view, ``chip_smoke.warp_frame_inputs``, and a warp
 training step, ``chip_smoke.warp_train_inputs``). C = 3, which the kernels are
 not built for, runs through the wrappers' zero-padding to C = 4.
+
+page_index, the encode's index, is held bit for bit to its plain
+version (``hash_paged.page_indices`` and the concatenation) on the point
+sets of ``tests/test_torch_page_index.py`` (edges, negative coordinates,
+the warp's clamp, N of 0, 1 and off the 256-point block), in its point
+gradient, in whole encodes with and without run dedup, and inside a
+CUDA graph.
 """
 
+import dataclasses
 import importlib.util
 import pathlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -52,6 +61,7 @@ from f2nerf_tpu_torch.core.config import Config, ModelConfig
 from f2nerf_tpu_torch.kernels import trilinear
 from f2nerf_tpu_torch.models import hash_field
 from f2nerf_tpu_torch.ops import hash_paged
+from test_torch_page_index import KINDS, METAS, index_points, meta_of
 
 pytestmark = pytest.mark.cuda
 
@@ -484,3 +494,138 @@ def test_dedup_encode_bitwise_flat_on_the_card(cuda, dtype):
         outs.append((feat.detach(), p.grad, x.grad))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# -- page_index: the encode's index ------------------------------------------
+
+def _plain_index(points, meta):
+    """The index as the plain passes give it (``page_indices`` and the
+    concatenation): ``hash_paged.encode_index`` before the kernel."""
+    consts = hash_paged._meta_tensors(meta, points.device)
+    page_idx, local, frac = trilinear.page_index_ref(points, *consts)
+    return page_idx, torch.cat([local.float(), frac], dim=-1)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", sorted(METAS))
+def test_page_index_bitwise_plain(cuda, name, kind):
+    """page_idx and local_frac bit for bit the plain passes' on the
+    cells' field and a tiny one: random points, cell and block edges,
+    negative coordinates, the warp's clamp, N of 0, 1 and 1,001."""
+    meta = meta_of(name)
+    pts = index_points(kind, meta).to(cuda)
+    consts = hash_paged._meta_tensors(meta, cuda)
+    before = trilinear.page_index.launches
+    page_idx, local_frac = trilinear.page_index(pts, *consts)
+    torch.cuda.synchronize()
+    assert trilinear.page_index.launches == before + 1
+    want = _plain_index(pts, meta)
+    assert page_idx.shape == want[0].shape
+    assert local_frac.shape == want[1].shape
+    assert torch.equal(page_idx, want[0])
+    assert torch.equal(local_frac, want[1])
+    got = hash_paged.encode_index(pts, meta)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_page_index_bitwise_plain_large(cuda):
+    """A frame's reply render of points at the cells' field (106x240 rays
+    x 64 samples), uniform in [-2, 2)^3."""
+    meta = meta_of("cells")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    pts = torch.rand((106 * 240 * 64, 3), generator=g, device=cuda) * 4 - 2
+    got = hash_paged.encode_index(pts, meta)
+    want = _plain_index(pts, meta)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_page_index_rejects_bad_inputs(cuda):
+    meta = meta_of("tiny")
+    pts = index_points("ragged", meta).to(cuda)
+    consts = hash_paged._meta_tensors(meta, cuda)
+    with pytest.raises(ValueError):
+        trilinear.page_index(pts, *hash_paged._meta_tensors(
+            meta, torch.device("cpu")))
+    with pytest.raises(ValueError):
+        trilinear.page_index(pts.double(), *consts)
+    with pytest.raises(ValueError):
+        trilinear.page_index(pts.t().contiguous().t(), *consts)
+
+
+@pytest.mark.parametrize("name", sorted(METAS))
+def test_page_index_point_gradient_bitwise(cuda, name):
+    """The point gradient through the kernel's autograd function is the
+    plain passes' autograd bit for bit."""
+    meta = meta_of(name)
+    pts = index_points("random", meta, seed=5).to(cuda)
+    g = torch.randn((meta.n_levels, pts.shape[0], 6), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(6))
+    x = pts.clone().requires_grad_(True)
+    before = trilinear.page_index.launches
+    page_idx, lf = hash_paged.encode_index(x, meta)
+    assert trilinear.page_index.launches == before + 1
+    assert lf.requires_grad and not page_idx.requires_grad
+    (got,) = torch.autograd.grad(lf, x, g)
+    y = pts.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(_plain_index(y, meta)[1], y, g)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_encode_bitwise_the_plain_index(cuda, dedup):
+    """``paged_encode_rays`` (run dedup) and ``paged_encode`` at the
+    cells' field: features, page gradient and point gradient bit for bit
+    those of the same encode given the plain index, one ``page_index``
+    launch an encode."""
+    mcfg = dataclasses.replace(Config().model, **METAS["cells"])
+    meta = hash_field.paged_meta(mcfg)
+    budgets = hash_field.ray_budgets(mcfg)
+    assert budgets is not None
+    g = torch.Generator().manual_seed(8)
+    pages = (torch.rand((meta.total_pages, 2, 4, 4, 4), generator=g) * 2
+             - 1).to(cuda)
+    pts = _ray_samples(1024, 64, 64 / 256, g, cuda)
+    cot = torch.randn((1024, 64, 32), generator=g).to(cuda)
+    outs = []
+    for plain in (False, True):
+        x = pts.clone().requires_grad_(True)
+        p = pages.clone().requires_grad_(True)
+        before = trilinear.page_index.launches
+        with mock.patch.object(hash_paged, "encode_index",
+                               _plain_index if plain
+                               else hash_paged.encode_index):
+            if dedup:
+                feat = hash_paged.paged_encode_rays(x, p, meta, budgets)
+            else:
+                feat = hash_paged.paged_encode(
+                    x.reshape(-1, 3), p, meta).reshape(1024, 64, -1)
+        (feat * cot).sum().backward()
+        assert trilinear.page_index.launches == before + (not plain)
+        outs.append((feat.detach(), p.grad, x.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_page_index_in_a_cuda_graph(cuda):
+    """An encode's index captured into a CUDA graph: the capture counts
+    one launch, and a replay on new points gives the plain index."""
+    meta = meta_of("cells")
+    g = torch.Generator(device=cuda).manual_seed(9)
+    static = torch.rand((70001, 3), generator=g, device=cuda) * 4 - 2
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hash_paged.encode_index(static, meta)        # warm: build, load
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = trilinear.page_index.launches
+    with torch.cuda.graph(graph):
+        page_idx, lf = hash_paged.encode_index(static, meta)
+    assert trilinear.page_index.launches == before + 1
+    for _ in range(2):
+        static.copy_(torch.rand(static.shape, device=cuda, generator=g)
+                     * 4 - 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _plain_index(static, meta)
+        assert torch.equal(page_idx, want[0]) and torch.equal(lf, want[1])

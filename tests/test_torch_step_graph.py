@@ -106,8 +106,7 @@ def _steps(cfg, s, step0, n, how="graphed", opt_hook=None, consts=None):
     fn = step_fn if how == "graphed" else step_fn.eager
     dev = s["device"]
     metrics, grids = [], []
-    counted = (trilinear.trilinear_fwd, trilinear.trilinear_bwd,
-               trilinear.trilinear_bwd_frac)
+    counted = step_graph._COUNTED
     launches0 = [f.launches for f in counted]
     for k in range(n):
         cam, ij, gt = s["batches"][k % len(s["batches"])]
@@ -416,17 +415,20 @@ def test_kernel_launches_count_replays_not_captures(stand_in, monkeypatch):
     def ticking(self, work):
         trilinear.trilinear_fwd.launches += 3
         trilinear.trilinear_bwd.launches += 1
+        trilinear.page_index.launches += 3
         return capture(self, work)
 
     monkeypatch.setattr(step_graph.StepGraphs, "_capture", ticking)
     monkeypatch.setattr(trilinear.trilinear_fwd, "launches", 0)
     monkeypatch.setattr(trilinear.trilinear_bwd, "launches", 0)
+    monkeypatch.setattr(trilinear.page_index, "launches", 0)
     cfg = _cfg("occ")
     s = _setup(cfg, 12, CPU, 2)
     _steps(cfg, s, 41, 6)
     assert len(stand_in["replays"]) == 5
     assert trilinear.trilinear_fwd.launches == 15
     assert trilinear.trilinear_bwd.launches == 5
+    assert trilinear.page_index.launches == 15
 
 
 def test_capturing_records_pairs_or_nothing():
@@ -591,6 +593,8 @@ def test_card_graphs_replay_the_eager_step(name, step0, n, cuda,
     _equal_runs(g, c)
     assert g["opt"].adam.param_groups[0]["capturable"]
     assert g["launches"] == c["launches"] and min(g["launches"][:2]) >= n
+    # one index launch for each encode, replays included
+    assert g["launches"][3] == g["launches"][0]
     g3 = _steps(cfg, s, step0, 3, consts=s["consts"])
     monkeypatch.setattr(topt, "_capturable", lambda dev: False)
     e3 = _steps(cfg, s, step0, 3, "eager", consts=s["consts"])
